@@ -85,6 +85,40 @@ module
 """
 
 
+def mfcc_cfg(rate: int = 16000, root: bool = False,
+             magnitude: bool = True) -> str:
+    """`MFCC_CFG` at another sample rate (window 2 * rate / 125 samples),
+    with the mel 10th root or the fft power spectrum when asked."""
+    text = MFCC_CFG.replace("sample_rate 16000", f"sample_rate {rate}")
+    if root:
+        text = text.replace("type mel\n", "type mel\n  root 1\n")
+    if not magnitude:
+        text = text.replace("type fft\n", "type fft\n  magnitude 0\n")
+    return text
+
+
+def probe_frames(kinds, T: int, W: int, rate: int, seed: int) -> np.ndarray:
+    """[T, W] float32 frames, row i of kind kinds[i % len(kinds)]: "loud"
+    noise (sd 8000), "quiet" noise (sd 2), or a 1234.5 Hz "tone" of
+    amplitude 5000 with a random phase, between DFT bins so that every
+    bin holds leakage and none only cancellation residue."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(W)
+    rows = []
+    for i in range(T):
+        kind = kinds[i % len(kinds)]
+        if kind == "loud":
+            rows.append(rng.normal(0, 8000, W))
+        elif kind == "quiet":
+            rows.append(rng.normal(0, 2, W))
+        elif kind == "tone":
+            phase = rng.uniform(0, 2 * np.pi)
+            rows.append(5000 * np.sin(2 * np.pi * 1234.5 / rate * n + phase))
+        else:
+            raise ValueError(f"unknown frame kind {kind!r}")
+    return np.stack(rows).astype(np.float32)
+
+
 def random_model(G=512, S=128, D=39, K=8, seed=0) -> model_io.HmmModel:
     """Random diagonal GMM with K components per tied state (the bench's
     scoring model at G=10,000, S=2,500, K=8)."""

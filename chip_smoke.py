@@ -5,8 +5,10 @@
 Phases, each printing a summary line:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. the build of both CUDA kernels from `aaltoasr_tpu_torch/csrc/`;
-3. the MFCC-core kernel against its plain PyTorch version at the serve
-   path's frontend shape (128 utterances x 8 s at 16 kHz);
+3. the MFCC-core kernel against its plain PyTorch version, timed at the
+   serve path's frontend batch (128 utterances x 8 s at 16 kHz) and at
+   one 8 s utterance (the main path's launch), and checked once more at
+   44.1 kHz (W=705);
 4. the GMM state-likelihood kernel against its plain version at the
    bench scoring model (G=10,000, S=2,500, K=8, D=39; 32 x 10 s);
 5. the main path: a synthetic 1,000-word cross-word triphone task with
@@ -33,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -85,13 +88,16 @@ def phase_build():
     from aaltoasr_tpu_torch.ops import cuda_build
     from aaltoasr_tpu_torch.ops.frontend_cuda import _lib as mfcc_lib
     from aaltoasr_tpu_torch.ops.gmm_cuda import _lib as gmm_lib
-    for source in ("mfcc_core.cu", "gmm_state_ll.cu"):
-        t0 = time.perf_counter()
-        path, log = cuda_build.build(source)
+    sources = ("mfcc_core.cu", "gmm_state_ll.cu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        built = list(pool.map(cuda_build.build, sources))
+    for source, (path, log) in zip(sources, built):
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[2] build {source}: {time.perf_counter() - t0:.2f} s "
-              f"-> {path.name}; {' | '.join(regs) or 'reused'}", flush=True)
+              f"(both in parallel) -> {path.name}; "
+              f"{' | '.join(regs) or 'reused'}", flush=True)
     mfcc_lib()
     gmm_lib()
 
@@ -100,41 +106,77 @@ def _within(got, ref, rtol, atol) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
 
 
-def phase_mfcc(device, n_utts=128, seconds=8.0):
-    """K2 at the frontend shape of the serve path: the frames the
-    generator hands the kernel for a [n_utts, seconds] batch."""
+def _mfcc_args(device, rate, n_utts, seconds, seed):
+    """The frames the generator hands K2 for a [n_utts, seconds] batch of
+    noise audio at `rate`, with the tables of the MFCC configuration."""
     from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
     from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
-    from aaltoasr_tpu_torch.ops import frontend_cuda as FC
-    from aaltoasr_tpu_torch.synth import MFCC_CFG
-    fg = FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device)
-    n = int(16000 * seconds)
-    g = torch.Generator(device=device).manual_seed(2)
+    from aaltoasr_tpu_torch.synth import mfcc_cfg
+    fg = FeatureGenerator(FeatureConfig.parse(mfcc_cfg(rate)), device=device)
+    n = int(rate * seconds)
+    g = torch.Generator(device=device).manual_seed(seed)
     samples = torch.randn(n_utts, n, generator=g, device=device) * 1000.0
     T = fg.num_frames(n)
     nl, nr = fg.need["fft"]
     frames = fg._base_frames(
         samples, torch.full((n_utts,), T, device=device), nl, T, nr)
     frames = frames.reshape(-1, frames.shape[-1]).contiguous()
-    args = (frames, fg.ops["fft"].table("basis", device),
+    return (frames, fg.ops["fft"].table("basis", device),
             fg.ops["mel"].table("weights", device),
             fg.ops["dct"].table("matrix", device))
+
+
+def _mfcc_check(args):
+    """K2 against its plain version on `args` -> (max |d|, within)."""
+    from aaltoasr_tpu_torch.ops import frontend_cuda as FC
     cep, pw = FC.mfcc_core(*args)
     ref_cep, ref_pw = FC.reference_core(*args)
-    sync(device)
     err = max(float((cep - ref_cep).abs().max()),
               float((pw - ref_pw).abs().max()))
-    # float32 sums in another order: rtol 1e-5, atol 1e-4 * max|value|
+    # 3xTF32 and float32 sums in another order: rtol 1e-5, atol 1e-4 * max
     ok = (_within(cep, ref_cep, 1e-5, 1e-4 * float(ref_cep.abs().max()))
           and _within(pw, ref_pw, 1e-5, 1e-4 * float(ref_pw.abs().max())))
-    ms = timed_ms(lambda: FC.mfcc_core(*args), device)
-    plain_ms = timed_ms(lambda: FC.reference_core(*args), device)
-    print(f"[3] mfcc_core {tuple(frames.shape)} frames: max|d| {err:.3e} "
-          f"(rtol 1e-5, atol 1e-4*max) kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
+    return err, ok
+
+
+def phase_mfcc(device, n_utts=128, seconds=8.0):
+    """K2 at the two shapes the port launches: the frontend batch of the
+    serve path (n_utts x seconds at 16 kHz) and one utterance, as
+    `PhoneProbs.lna_codes` launches it on the main path; then once at
+    44.1 kHz (W=705), a window the earlier kernel could not take."""
+    from aaltoasr_tpu_torch.ops import frontend_cuda as FC
+    res = {}
+    for shape, n in (("batch", n_utts), ("utt", 1)):
+        args = _mfcc_args(device, 16000, n, seconds, seed=2)
+        err, ok = _mfcc_check(args)
+        iters = 10 if shape == "batch" else 100
+        ms = timed_ms(lambda: FC.mfcc_core(*args), device, iters=iters)
+        plain_ms = timed_ms(lambda: FC.reference_core(*args), device,
+                            iters=iters)
+        T, W = args[0].shape
+        tile = FC.pick_tile(T, torch.cuda.get_device_properties(
+            device).multi_processor_count) if device.type == "cuda" else 0
+        print(f"[3] mfcc_core {shape} ({T}, {W}) frames, tile {tile}: "
+              f"max|d| {err:.3e} (rtol 1e-5, atol 1e-4*max) kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        if not ok:
+            fail(f"mfcc_core disagrees with its plain version ({shape})")
+        res[shape] = (err, ms, plain_ms)
+    args = _mfcc_args(device, 44100, 8, 2.0, seed=3)
+    err44, ok = _mfcc_check(args)
+    print(f"[3] mfcc_core 44.1 kHz {tuple(args[0].shape)} frames: max|d| "
+          f"{err44:.3e} (rtol 1e-5, atol 1e-4*max)", flush=True)
     if not ok:
-        fail("mfcc_core disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        fail("mfcc_core disagrees with its plain version at 44.1 kHz")
+    if device.type == "cuda":
+        M = args[2].shape[1]
+        smem = {t: FC._lib().mfcc_core_smem_bytes(t, M) for t in FC.TILES}
+        print(f"[3] mfcc_core shared memory per block at M={M}: "
+              + ", ".join(f"tile {t}: {b} B" for t, b in smem.items()),
+              flush=True)
+    return {"max_abs_err": max(res["batch"][0], res["utt"][0], err44),
+            "ms": res["batch"][1], "plain_ms": res["batch"][2],
+            "utt_ms": res["utt"][1], "utt_plain_ms": res["utt"][2]}
 
 
 def phase_gmm(device, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):

@@ -121,18 +121,26 @@ def test_non_integer_advance():
            JGen(JConfig.parse(cfg)).features(audio))
 
 
-@pytest.mark.parametrize("magnitude,root,with_power", [
-    (True, False, True), (True, False, False), (False, True, True)])
+CORE_MODES = [(True, False, True), (True, False, False), (False, True, True)]
+# 16 kHz keeps its ids; 8, 22.05 and 44.1 kHz give W = 128, 352, 705
+CORE_CASES = ([pytest.param(*m, 16000, id="-".join(map(str, m)))
+               for m in CORE_MODES]
+              + [pytest.param(*m, rate, id="-".join(map(str, (rate, *m))))
+                 for rate in (8000, 22050, 44100) for m in CORE_MODES])
+
+
+@pytest.mark.parametrize("magnitude,root,with_power,rate", CORE_CASES)
 def test_mfcc_core_plain_matches_pallas_interpret(magnitude, root,
-                                                  with_power):
+                                                  with_power, rate):
     """The K2 kernel's plain version against the Pallas kernel in
     interpret mode (as tests/test_frontend_fused.py runs it)."""
-    fg = TGen(TConfig.parse(MFCC_CFG))
+    fg = TGen(TConfig.parse(MFCC_CFG.replace(
+        "sample_rate 16000", f"sample_rate {rate}")))
     basis = fg.ops["fft"].basis
     mel_w = fg.ops["mel"].weights
     dct = fg.ops["dct"].matrix
-    frames = np.random.default_rng(7).normal(0, 1000, (150, 256)).astype(
-        np.float32)
+    frames = np.random.default_rng(7).normal(
+        0, 1000, (150, basis.shape[0])).astype(np.float32)
     want = j_mfcc_core(jnp.asarray(frames), jnp.asarray(basis),
                        jnp.asarray(mel_w), jnp.asarray(dct),
                        magnitude=magnitude, root=root,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
-Both kernels compute in IEEE float32 on the CUDA cores; the plain
-versions run cuBLAS float32 matmuls (TF32 off).  They differ only in
-summation order, hence the tolerances below.  Every test here needs a
+The GMM kernel computes in IEEE float32 on the CUDA cores; the MFCC
+kernel runs its DFT product on the tensor cores as 3xTF32, which keeps
+float32's accuracy; the plain versions run cuBLAS float32 matmuls (TF32
+off).  They differ in summation order, hence the tolerances below.  Every test here needs a
 CUDA device and skips without one; on the GPU host run
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -19,7 +20,8 @@ from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.ops import frontend_cuda, gmm_cuda
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
-from aaltoasr_tpu_torch.synth import MFCC_CFG, random_model
+from aaltoasr_tpu_torch.synth import (
+    MFCC_CFG, mfcc_cfg, probe_frames, random_model)
 
 pytestmark = pytest.mark.cuda
 
@@ -33,26 +35,39 @@ def dev():
     return torch.device("cuda")
 
 
-def _mfcc_tables(dev, root=False, magnitude=True):
-    text = MFCC_CFG
-    if root:
-        text = text.replace("type mel\n", "type mel\n  root 1\n")
-    if not magnitude:
-        text = text.replace("type fft\n", "type fft\n  magnitude 0\n")
-    fg = FeatureGenerator(FeatureConfig.parse(text), device=dev)
+RATES = [8000, 16000, 22050, 32000, 44100, 48000]  # W = 128 ... 768
+
+
+def mfcc_tables(rate, dev, root=False, magnitude=True):
+    fg = FeatureGenerator(FeatureConfig.parse(
+        mfcc_cfg(rate, root=root, magnitude=magnitude)), device=dev)
     return (fg.ops["fft"].table("basis", dev),
             fg.ops["mel"].table("weights", dev),
             fg.ops["dct"].table("matrix", dev))
 
 
-@pytest.mark.parametrize("T", [1, 77, 1000])
-@pytest.mark.parametrize("magnitude,root,with_power", [
-    (True, False, True), (True, False, False), (False, False, True),
-    (True, True, True)])
-def test_mfcc_core_matches_plain(dev, T, magnitude, root, with_power):
-    basis, mel_w, dct = _mfcc_tables(dev, root=root, magnitude=magnitude)
-    g = torch.Generator(device=dev).manual_seed(T)
-    frames = torch.randn(T, 256, generator=g, device=dev) * 1000.0
+MODES = [(True, False, True), (True, False, False), (False, False, True),
+         (True, True, True)]
+# T at the edges of both tiles, one 8 s utterance, and a ragged batch
+EDGES = {"1": lambda tile: 1, "tile-1": lambda tile: tile - 1,
+         "tile+1": lambda tile: tile + 1, "1006": lambda tile: 1006,
+         "4097": lambda tile: 4097}
+
+
+@pytest.mark.parametrize("magnitude,root,with_power", MODES)
+@pytest.mark.parametrize("edge", list(EDGES))
+@pytest.mark.parametrize("tile", frontend_cuda.TILES)
+@pytest.mark.parametrize("rate", RATES)
+def test_mfcc_core_matches_plain(dev, monkeypatch, rate, tile, edge,
+                                 magnitude, root, with_power):
+    """Every window from W=128 (8 kHz) to W=768 (48 kHz); W=352 and above
+    did not fit the shared memory of the earlier kernel."""
+    monkeypatch.setattr(frontend_cuda, "pick_tile", lambda T, n: tile)
+    basis, mel_w, dct = mfcc_tables(rate, dev, root=root,
+                                    magnitude=magnitude)
+    T = EDGES[edge](tile)
+    frames = torch.tensor(probe_frames(["loud", "quiet", "tone"], T,
+                                       basis.shape[0], rate, seed=T), device=dev)
     before = frontend_cuda.mfcc_core.launches
     cep, pw = frontend_cuda.mfcc_core(frames, basis, mel_w, dct,
                                       magnitude=magnitude, root=root,
@@ -62,7 +77,7 @@ def test_mfcc_core_matches_plain(dev, T, magnitude, root, with_power):
     ref_cep, ref_pw = frontend_cuda.reference_core(
         frames, basis, mel_w, dct, magnitude=magnitude, root=root,
         with_power=with_power)
-    # float32 sums in another order: rtol 1e-5, atol 1e-4 * max|value|
+    # 3xTF32 and float32 sums in another order: rtol 1e-5, atol 1e-4 * max
     scale = float(ref_cep.abs().max())
     torch.testing.assert_close(cep, ref_cep, rtol=1e-5, atol=1e-4 * scale)
     if with_power:
@@ -73,7 +88,7 @@ def test_mfcc_core_matches_plain(dev, T, magnitude, root, with_power):
 
 
 def test_mfcc_core_rejects_bad_inputs(dev):
-    basis, mel_w, dct = _mfcc_tables(dev)
+    basis, mel_w, dct = mfcc_tables(16000, dev)
     frames = torch.zeros(8, 256, device=dev)
     with pytest.raises(TypeError):
         frontend_cuda.mfcc_core(frames.double(), basis, mel_w, dct)
@@ -123,6 +138,23 @@ def test_fused_generator_matches_unfused(dev):
     samples = rng.normal(0, 1000, (3, 16000)).astype(np.float32)
     lens = np.array([16000, 12000, 9000])
     cfg = FeatureConfig.parse(MFCC_CFG)
+    before = frontend_cuda.mfcc_core.launches
+    fused = FeatureGenerator(cfg, fused_mfcc=True,
+                             device=dev).features_batch(samples, lens)
+    assert frontend_cuda.mfcc_core.launches == before + 1
+    plain = FeatureGenerator(cfg, device=dev).features_batch(samples, lens)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
+
+
+def test_fused_generator_44k_matches_unfused(dev):
+    """At 44.1 kHz (W=705, 29 mel bands) the fused generator launches the
+    kernel and agrees with the unfused ops; the earlier kernel raised
+    here for want of shared memory."""
+    rng = np.random.default_rng(1)
+    samples = rng.normal(0, 1000, (2, 44100)).astype(np.float32)
+    lens = np.array([44100, 30000])
+    cfg = FeatureConfig.parse(mfcc_cfg(44100))
     before = frontend_cuda.mfcc_core.launches
     fused = FeatureGenerator(cfg, fused_mfcc=True,
                              device=dev).features_batch(samples, lens)
