@@ -15,6 +15,9 @@ models    PhoneProbs: audio -> features -> LNA log-probs
 decoder   lexical prefix tree, backoff-FSA LM walk, dense beam search
 cli       `phone_probs` and `recognize --engine dense`
 
+The entry points (the CLIs, `PhoneProbs`, `DenseBeamSearch`) run on the
+GPU unless the caller asks for the CPU (`device.py`).
+
 `synth.py` builds the benchmark's synthetic tasks without jax, and
 `convert.py` carries reference objects across for the parity tests.
 Importing this package imports no submodule, and no module imports jax.

@@ -1,8 +1,8 @@
 """phone_probs: recipe -> per-utterance LNA emission probability files.
 
 Counterpart of `aaltoasr_tpu/cli/phone_probs.py`, with the same flags
-(`aku/phone_probs.cc:46-110`).  It runs on the GPU when there is one,
-else on the CPU.  Speaker configurations (-S) and Gaussian clustering
+(`aku/phone_probs.cc:46-110`), plus ``--device`` (default ``cuda``; with
+no GPU it raises unless ``--device cpu`` is given).  Speaker configurations (-S) and Gaussian clustering
 (-C) are not ported yet and raise NotImplementedError.
 """
 
@@ -11,8 +11,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-import torch
-
+from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.model_io import (
     HmmModel, read_gk, read_mc, read_ph)
 from aaltoasr_tpu_torch.formats.recipe import Recipe
@@ -54,12 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score with the gather-free fused kernel "
                         "(ops/gmm_cuda.py; deltas below the 2-byte "
                         "quantization step; plain diagonal GMMs)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a GPU "
+                        "unless cpu is given)")
     return p
-
-
-def default_device() -> torch.device:
-    """The GPU when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def load_model(args) -> HmmModel | str:
@@ -78,10 +75,11 @@ def load_model(args) -> HmmModel | str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
     pp = PhoneProbs(load_model(args), args.config,
                     lna_bytes=args.lnabytes,
                     normalize=not args.no_normalization,
-                    fused=args.fused, device=default_device())
+                    fused=args.fused, device=device)
     if args.speakers:
         pp.read_speaker_config(args.speakers)
     if args.clusters:

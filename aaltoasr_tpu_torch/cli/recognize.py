@@ -3,8 +3,9 @@
 Counterpart of `aaltoasr_tpu/cli/recognize.py`, with the same flags and
 rectool's reuse semantics (rectool.py:613-634, 1045-1056): LNA
 generation through the scoring pipeline (skip-if-exists), then batched
-decoding with the dense engine and 1-best output.  It runs on the GPU
-when there is one, else on the CPU.  The exact engine (and ``--engine
+decoding with the dense engine and 1-best output.  It runs on
+``--device`` (default ``cuda``; with no GPU it raises unless ``--device
+cpu`` is given).  The exact engine (and ``--engine
 auto``, which picks it below 100k tree nodes), adaptation, lattices,
 n-best lists, confidences and state segmentations are not ported yet
 and raise NotImplementedError naming the slice that brings them.
@@ -18,11 +19,11 @@ import sys
 
 import numpy as np
 
-from aaltoasr_tpu_torch.cli.phone_probs import default_device
 from aaltoasr_tpu_torch.decoder.lexicon import build_prefix_tree, read_lexicon
 from aaltoasr_tpu_torch.decoder.ngram import NGramFsa
 from aaltoasr_tpu_torch.decoder.search import SearchConfig
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.arpa import read_arpa
 from aaltoasr_tpu_torch.formats.lna import read_lna
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_dur, read_ph
@@ -143,6 +144,9 @@ def main(argv=None) -> int:
     p.add_argument("-B", "--batch", type=int, default=0)
     p.add_argument("-I", "--bindex", type=int, default=0)
     p.add_argument("-i", "--info", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a GPU "
+                        "unless cpu is given)")
     args = p.parse_args(argv)
 
     if args.adapt:
@@ -154,7 +158,7 @@ def main(argv=None) -> int:
     if args.engine == "exact":
         raise NotImplementedError(_LATER["exact"])
 
-    device = default_device()
+    device = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
 

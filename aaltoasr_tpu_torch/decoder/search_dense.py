@@ -36,6 +36,7 @@ from aaltoasr_tpu_torch.decoder.ngram import NGramFsa, lm_walk_device
 from aaltoasr_tpu_torch.decoder.search import (
     DecodeResult, SearchConfig, expand_word_boundaries,
     multiword_components, walk_components)
+from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
 
 NEG_INF = float("-inf")
@@ -94,14 +95,16 @@ def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
 
 
 class DenseBeamSearch:
-    """Dense-mode batched decoder for one (tree, LM, model) triple."""
+    """Dense-mode batched decoder for one (tree, LM, model) triple, on
+    ``device``: the GPU unless the caller passes ``device="cpu"``."""
 
     _traceback_cap = 100000     # word-chain safety bound (per utterance
                                 # min(cap, T): at most one word a frame)
 
     def __init__(self, tree: PrefixTree, lm: NGramFsa, model,
                  config: SearchConfig = SearchConfig(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         if not isinstance(lm, NGramFsa):
             raise NotImplementedError(
                 "interpolated LMs are not ported yet (ROADMAP queue 1, "
@@ -111,7 +114,6 @@ class DenseBeamSearch:
         self.tree = tree
         self.lm = lm
         self.config = config
-        self.device = torch.device(device)
         shifts, grp_src, grp_lp, grp_inv = _shift_structure(tree)
 
         # compact re-entry space: the union of all context-pair row

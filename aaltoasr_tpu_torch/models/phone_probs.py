@@ -3,7 +3,8 @@
 Counterpart of `aaltoasr_tpu/models/phone_probs.py` (the reference's
 PPToolbox, `aku/PhoneProbsToolbox.{hh,cc}`, and `aku/phone_probs.cc`).
 Features, scoring, normalization and 2-byte quantization run on the
-pipeline's device; the host reads audio and writes the LNA payload.
+pipeline's device (the GPU unless the caller passes ``device="cpu"``);
+the host reads audio and writes the LNA payload.
 ``fused=True`` scores with the gather-free kernel (`ops/gmm_cuda.py`).
 """
 
@@ -15,6 +16,7 @@ import sys
 import numpy as np
 import torch
 
+from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
 from aaltoasr_tpu_torch.formats.lna import write_lna
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_model
@@ -31,14 +33,14 @@ class PhoneProbs:
 
     def __init__(self, model: HmmModel | str, config: FeatureConfig | str,
                  lna_bytes: int = 2, normalize: bool = True,
-                 fused: bool = False, device: torch.device | str = "cpu"):
+                 fused: bool = False, device: torch.device | str = "cuda"):
         """fused=True scores states with the gather-free kernel
         (`ops/gmm_cuda.py`); it differs from the plain path only by the
         logsumexp reduction order, below the 2-byte quantization step."""
+        self.device = resolve_device(device)
         if isinstance(model, str):
             model = read_model(model)
         self.model = model
-        self.device = torch.device(device)
         self.fg = FeatureGenerator(config, device=self.device)
         self.scorer = GmmScorer.from_model(model, device=self.device)
         self.fused_scorer = None

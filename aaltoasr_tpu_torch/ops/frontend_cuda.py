@@ -18,10 +18,11 @@ import ctypes
 import functools
 
 import torch
-from torch.utils.weak import WeakTensorKeyDictionary
 
 from aaltoasr_tpu_torch.ops.cuda_build import (
     SMEM_LIMIT, check, load_library)
+from aaltoasr_tpu_torch.ops.tf32 import (  # noqa: F401  (names kept here)
+    derived, device_index, num_sms, round_tf32, split_tf32)
 
 SOURCE = "mfcc_core.cu"
 CHUNK = 96        # basis columns per chunk (48 bins), as in the source
@@ -60,19 +61,6 @@ def reference_core(frames, dft_basis, mel_w, dct_m, magnitude=True,
     return v @ dct_m, pw
 
 
-def round_tf32(t: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
-    zero), as ``cvt.rna.tf32.f32`` rounds: the 13 low bits cleared."""
-    i = t.contiguous().view(torch.int32)
-    return ((i + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 -> (hi, lo) TF32 parts: hi = tf32(t), lo = tf32(t - hi)."""
-    hi = round_tf32(t)
-    return hi, round_tf32(t - hi)
-
-
 def basis_layout(dft_basis: torch.Tensor) -> torch.Tensor:
     """[W, 2K] basis ([cos | -sin] halves) -> [Np, Wp], transposed so a
     k-slice of a column is contiguous, with bin k's re column at row 2k
@@ -107,32 +95,12 @@ def mel_table(mel_w: torch.Tensor, rows: int):
     return weights, bands
 
 
-# kernel layout of a source table, held as long as that tensor lives: one
-# entry per op table (`Op.table` uploads each once per device)
-_DERIVED = WeakTensorKeyDictionary()
-
-
-def _derived(table: torch.Tensor, make):
-    """``make(table)``, made once per table and version.  It is made on the
-    host and uploaded: in a fresh process the first launches of its dozen
-    torch ops on the GPU take ~0.2 s, the host work a few ms."""
-    hit = _DERIVED.get(table)
-    if hit is None or hit[0] != table._version:
-        made = tuple(t.to(table.device) for t in make(table.cpu()))
-        hit = _DERIVED[table] = (table._version, made)
-    return hit[1]
-
-
 def prepared_tables(dft_basis, mel_w):
-    """(basis hi, basis lo, mel weights, mel bands) for the kernel."""
-    hi, lo = _derived(dft_basis, lambda t: split_tf32(basis_layout(t)))
+    """(basis hi, basis lo, mel weights, mel bands) for the kernel, made
+    once per source table (`tf32.derived`)."""
+    hi, lo = derived(dft_basis, lambda t: split_tf32(basis_layout(t)))
     rows = hi.shape[0] // 2
-    return (hi, lo, *_derived(mel_w, lambda t: mel_table(t, rows)))
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+    return (hi, lo, *derived(mel_w, lambda t: mel_table(t, rows)))
 
 
 def pick_tile(T: int, num_sms: int) -> int:
@@ -185,8 +153,7 @@ def mfcc_core(frames, dft_basis, mel_w, dct_m, magnitude=True, root=False,
     T, W = frames.shape
     M, C = dct_m.shape
     dev = frames.device
-    tile = pick_tile(T, _num_sms(dev.index if dev.index is not None
-                                 else torch.cuda.current_device()))
+    tile = pick_tile(T, num_sms(device_index(dev)))
     lib = _lib()
     smem = lib.mfcc_core_smem_bytes(tile, M)
     if smem > SMEM_LIMIT:

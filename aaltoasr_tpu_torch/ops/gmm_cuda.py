@@ -14,6 +14,12 @@ with the hand-written CUDA kernel `csrc/gmm_state_ll.cu` on CUDA
 tensors, and with its plain PyTorch version `reference_state_ll` on CPU
 tensors.  Results differ from `GmmScorer.state_log_likelihoods` only by
 the order of the logsumexp reduction.
+
+The kernel runs the products on the tensor cores as 3xTF32: the slabs
+are split into TF32 hi and lo parts and laid out as the kernel's shared
+memory holds them, one contiguous run per k-slice (`slab_layout`,
+`slab_table`), on the host, once per slab tensor; the kernel splits each
+feature term after its shared-memory load.
 """
 
 from __future__ import annotations
@@ -29,25 +35,95 @@ from aaltoasr_tpu_torch.ops.cuda_build import (
     SMEM_LIMIT, check, load_library)
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer, _round_up, lna_normalize
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
+from aaltoasr_tpu_torch.ops.tf32 import (
+    derived, device_index, num_sms, split_tf32)
 
 SOURCE = "gmm_state_ll.cu"
-TILE_S = 512            # state padding of the slabs (the kernel tiles by 64)
+TILE_S = 512            # state padding of the slabs
 _LANE = 128             # feature-row padding of the slabs
+DEPTH_STEP = 16         # the kernel's k-slice: slab depth 2D+1 padded to it
+# (frames, states) per block of the batch tile and the one-utterance tile,
+# and the stages of their slab rings: the source's `Batch` and `Utt`
+TILES = ((128, 64), (64, 64))
+RING = 3
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare a build's launcher: x, slab table, out, T, D, K, depth,
+    Spp, tile, stream."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.gmm_state_ll_launch.argtypes = [vp] * 3 + [i] * 5 + [vp]
+    lib.gmm_state_ll_launch.argtypes = [vp] * 3 + [i] * 6 + [vp]
     lib.gmm_state_ll_launch.restype = i
     return lib
 
 
-def _smem_bytes(dim: int) -> int:
-    """Shared memory of one kernel block (gmm_state_ll_smem_bytes in C)."""
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(load_library(SOURCE))
+
+
+def slab_depth(dim: int) -> int:
+    """Depth of the kernel's slab rows: 2*dim+1 padded to DEPTH_STEP."""
+    return _round_up(2 * dim + 1, DEPTH_STEP)
+
+
+def smem_bytes(tile: int, depth: int) -> int:
+    """Shared memory of one kernel block (`smem_bytes` in the source):
+    the [frames, depth + 4] xq tile, the ring of hi and lo slab slices and
+    the running sums (32 a thread, 2 threads a frame), and two barriers
+    per ring stage."""
+    frames, states = TILES[tile]
+    return 4 * (frames * (depth + 4) + RING * 2 * states * DEPTH_STEP
+                + frames * 2 * 32) + 16 * RING
+
+
+def pick_tile(T: int, Spp: int, dim: int, num_sms: int) -> int:
+    """Tile index: the batch tile once its blocks fill the card twice over
+    and its xq tile fits, else the one-utterance tile, which spreads
+    about 1,000 frames over more blocks; raises when neither fits."""
+    depth = slab_depth(dim)
+    frames, states = TILES[0]
+    if (smem_bytes(0, depth) <= SMEM_LIMIT
+            and -(-T // frames) * (Spp // states) >= 2 * num_sms):
+        return 0
+    if smem_bytes(1, depth) <= SMEM_LIMIT:
+        return 1
+    raise ValueError(f"gmm_state_ll: dim {dim} needs "
+                     f"{smem_bytes(1, depth)} bytes of shared memory, above "
+                     f"the {SMEM_LIMIT} limit")
+
+
+def slab_layout(we: torch.Tensor, dim: int) -> torch.Tensor:
+    """[K, Dq, Spp] slabs -> [K, Spp, depth]: transposed so a k-slice of a
+    state's column is contiguous (the MMA's K-major B operand), the live
+    rows 2*dim+1 zero-padded to `slab_depth`."""
+    K, _, Spp = we.shape
     d2 = 2 * dim + 1
-    return 4 * (64 * (d2 | 1) + d2 * 64)
+    out = we.new_zeros((K, Spp, slab_depth(dim)))
+    out[:, :, :d2] = we[:, :d2, :].transpose(1, 2)
+    return out
+
+
+def slab_tiles(lay: torch.Tensor) -> torch.Tensor:
+    """[K, Spp, depth] -> [K, Spp/64, depth/16, 2, 1024]: per k-slice of a
+    64-state tile, its TF32 hi then lo part, each as the 8 x 4 core
+    matrices of wgmma's no-swizzle layout (core matrix (n/8, c) holds
+    state n's depth-vector c of 4 at row n % 8)."""
+    K, Spp, depth = lay.shape
+    states = TILES[0][1]
+    v = lay.reshape(K, Spp // states, states // 8, 8, depth // DEPTH_STEP,
+                    DEPTH_STEP // 4, 4)
+    # -> [K, tile, slice, n / 8, c, n % 8, 4]
+    v = v.permute(0, 1, 4, 2, 5, 3, 6).reshape(
+        K, Spp // states, depth // DEPTH_STEP, 1, states * DEPTH_STEP)
+    return torch.cat(split_tf32(v), dim=3)
+
+
+def slab_table(we: torch.Tensor, dim: int) -> torch.Tensor:
+    """`slab_tiles(slab_layout(we))` on the slabs' device, made once per
+    slab tensor (on the host)."""
+    return derived(we, lambda t: (slab_tiles(slab_layout(t, dim)),),
+                   tag=dim)[0]
 
 
 def reference_state_ll(features: torch.Tensor, we: torch.Tensor,
@@ -75,7 +151,8 @@ def gmm_state_ll(features: torch.Tensor, we: torch.Tensor,
                  dim: int) -> torch.Tensor:
     """[T, D] features, [K, Dq, Spp] slabs -> [T, Spp] state log-likelihoods.
 
-    CUDA tensors launch the kernel; CPU tensors take `reference_state_ll`.
+    CUDA tensors launch the kernel, with the tile picked from T
+    (`pick_tile`); CPU tensors take `reference_state_ll`.
     """
     if features.device.type == "cpu":
         return reference_state_ll(features, we, dim)
@@ -94,20 +171,20 @@ def gmm_state_ll(features: torch.Tensor, we: torch.Tensor,
     if features.dim() != 2 or features.shape[1] != dim:
         raise ValueError(f"gmm_state_ll: features must be [T, {dim}], got "
                          f"{tuple(features.shape)}")
-    if K < 1 or Dq < 2 * dim + 1 or Spp % 64:
+    T = features.shape[0]
+    tile = pick_tile(T, Spp, dim,
+                     num_sms(device_index(features.device)))
+    if K < 1 or Dq < 2 * dim + 1 or Spp % TILES[tile][1]:
         raise ValueError(f"gmm_state_ll: bad slab shape {tuple(we.shape)} "
                          f"for dim {dim}")
-    if _smem_bytes(dim) > SMEM_LIMIT:
-        raise ValueError(f"gmm_state_ll: dim {dim} exceeds the kernel's "
-                         "shared memory")
     lib = _lib()
-    T = features.shape[0]
     out = torch.empty((T, Spp), dtype=torch.float32, device=features.device)
     if T == 0:
         return out
     err = lib.gmm_state_ll_launch(
-        features.data_ptr(), we.data_ptr(), out.data_ptr(), T, dim, K, Dq,
-        Spp, torch.cuda.current_stream(features.device).cuda_stream)
+        features.data_ptr(), slab_table(we, dim).data_ptr(), out.data_ptr(),
+        T, dim, K, slab_depth(dim), Spp, tile,
+        torch.cuda.current_stream(features.device).cuda_stream)
     check(lib, err, "gmm_state_ll")
     gmm_state_ll.launches += 1
     return out
@@ -131,8 +208,9 @@ class FusedGmmScorer:
 
     @classmethod
     def from_scorer(cls, scorer: GmmScorer) -> "FusedGmmScorer":
-        """Build from a diagonal-covariance `GmmScorer`, on its device."""
-        if _smem_bytes(scorer.dim) > SMEM_LIMIT:
+        """Build from a diagonal-covariance `GmmScorer`, on its device.
+        On a GPU the kernel's slab table is made here, once."""
+        if smem_bytes(1, slab_depth(scorer.dim)) > SMEM_LIMIT:
             raise ValueError(f"feature dimension {scorer.dim} exceeds the "
                              "fused kernel's shared memory")
         A = scorer.score_matrix.cpu().numpy()        # [2D, Gp]
@@ -150,8 +228,11 @@ class FusedGmmScorer:
             # (LOG_ZERO-padded slots stay LOG_ZERO: b+cw ~ -1e30)
             we[k, D2, :Sp] = np.maximum(b[ci[:, k]] + cw[:, k], LOG_ZERO)
             we[k, D2, Sp:] = LOG_ZERO
-        return cls(dim=scorer.dim, num_states=scorer.num_states,
-                   we=torch.as_tensor(we, device=scorer.device))
+        fused = cls(dim=scorer.dim, num_states=scorer.num_states,
+                    we=torch.as_tensor(we, device=scorer.device))
+        if fused.we.device.type == "cuda":
+            slab_table(fused.we, fused.dim)
+        return fused
 
     def state_log_likelihoods(self, features: torch.Tensor) -> torch.Tensor:
         """[T, D] or [B, T, D] -> [..., T, Spp] tied-state log-likelihoods

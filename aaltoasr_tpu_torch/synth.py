@@ -138,6 +138,25 @@ def random_model(G=512, S=128, D=39, K=8, seed=0) -> model_io.HmmModel:
         mixtures=mixtures, phones=phones, transitions=transitions)
 
 
+def uneven_model(G=60, S=21, D=39, K=5, seed=0) -> model_io.HmmModel:
+    """Random diagonal GMM whose states have 1 to K components (state s
+    has 1 + s % K), and every seventh state a zero weight on its first
+    component: the slot tables then hold LOG_ZERO slots inside the real
+    states, first slots among them."""
+    rng = np.random.default_rng(seed)
+    mixtures = []
+    for s in range(S):
+        n = 1 + s % K
+        w = rng.dirichlet(np.ones(n))
+        if s % 7 == 3 and n > 1:
+            w[0] = 0.0
+            w /= w.sum()
+        mixtures.append((rng.choice(G, n, replace=False).astype(np.int32), w))
+    model = random_model(G=G, S=S, D=D, K=1, seed=seed)
+    model.mixtures = mixtures
+    return model
+
+
 @dataclass
 class SynthTask:
     model: model_io.HmmModel

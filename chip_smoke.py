@@ -10,7 +10,11 @@ Phases, each printing a summary line:
    one 8 s utterance (the main path's launch), and checked once more at
    44.1 kHz (W=705);
 4. the GMM state-likelihood kernel against its plain version at the
-   bench scoring model (G=10,000, S=2,500, K=8, D=39; 32 x 10 s);
+   bench scoring model (G=10,000, S=2,500, K=8, D=39; 32 x 10 s) and at
+   one 8 s utterance against the main path's 2,704-state model, each
+   beside a cuBLAS float32 product of the same shape (a yardstick of the
+   product without the logsumexp, which the port never calls), with the
+   LNA codes of kernel and plain version compared at the scoring model;
 5. the main path: a synthetic 1,000-word cross-word triphone task with
    gamma durations and a trigram LM is written as files; `PhoneProbs`
    (fused scoring, fused MFCC) writes 2-byte LNAs for 4 WAVs of 8 s, and
@@ -21,9 +25,12 @@ Phases, each printing a summary line:
    planted observations): planted-word agreement on the first 4
    utterances and the real-time factor.
 
-It then prints one JSON line of per-kernel results and, last, the
-device line.  It exits non-zero, before printing any result, when no
-CUDA device is present or any check fails.  It never imports jax.
+It then prints one JSON line of per-kernel results (each kernel's time
+beside its bound: the larger of its bytes over 3.35 TB/s and its
+products as 3xTF32 work over 495 TFLOP/s, the H100 SXM's published
+rates) and, last, the device line.  It exits non-zero, before printing
+any result, when no CUDA device is present or any check fails.  It
+never imports jax.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ MFCC_SOURCE = "aaltoasr_tpu_torch/csrc/mfcc_core.cu"
 GMM_SOURCE = "aaltoasr_tpu_torch/csrc/gmm_state_ll.cu"
 MFCC_REPLACES = "aaltoasr_tpu/ops/frontend_pallas.py:60"
 GMM_REPLACES = "aaltoasr_tpu/ops/gmm_pallas.py:144"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, the same
 
 
 def fail(msg: str):
@@ -70,6 +79,41 @@ def timed_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def graph_ms(fn, device, iters: int = 50, reps: int = 5,
+             capture_error_mode: str = "global") -> float:
+    """Device milliseconds per call: `iters` calls captured in a CUDA
+    graph, replayed `reps` times between CUDA events (no host launch
+    cost).  The host clock on a CPU (rehearsal only)."""
+    if device.type != "cuda":
+        return timed_ms(fn, device, iters=iters)
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms, what sets it): `flops` of float32 products done as
+    3xTF32 on the tensor cores, `nbytes` moved once through HBM."""
+    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
 
 
 def sync(device):
@@ -162,6 +206,11 @@ def phase_mfcc(device, n_utts=128, seconds=8.0):
         if not ok:
             fail(f"mfcc_core disagrees with its plain version ({shape})")
         res[shape] = (err, ms, plain_ms)
+        if shape == "batch":
+            # the DFT product's flops; frames read, cepstra + power written
+            C = args[3].shape[1]
+            k2_bound = bound(2.0 * T * W * args[1].shape[1],
+                             4.0 * T * (W + C + 1))
     args = _mfcc_args(device, 44100, 8, 2.0, seed=3)
     err44, ok = _mfcc_check(args)
     print(f"[3] mfcc_core 44.1 kHz {tuple(args[0].shape)} frames: max|d| "
@@ -176,15 +225,70 @@ def phase_mfcc(device, n_utts=128, seconds=8.0):
               flush=True)
     return {"max_abs_err": max(res["batch"][0], res["utt"][0], err44),
             "ms": res["batch"][1], "plain_ms": res["batch"][2],
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+            "library_ms": None,
             "utt_ms": res["utt"][1], "utt_plain_ms": res["utt"][2]}
 
 
-def phase_gmm(device, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):
-    """K1 at the bench scoring model, on real features of noise audio."""
+def _gmm_shape(device, x, model, label, lna=False):
+    """K1 on features `x` against `model`: checked against its plain
+    version, timed beside it and beside the cuBLAS product of the same
+    shape.  Returns (max |d|, kernel ms, plain ms, product ms, bound)."""
+    from aaltoasr_tpu_torch.ops import gmm_cuda as GC
+    from aaltoasr_tpu_torch.ops.gmm import (
+        GmmScorer, lna_normalize, quantize_lna_u16)
+    fused = GC.FusedGmmScorer.from_scorer(
+        GmmScorer.from_model(model, device=device))
+    we, D, S = fused.we, x.shape[1], fused.num_states
+    K, _, Spp = we.shape
+    T = x.shape[0]
+    out = GC.gmm_state_ll(x, we, D)
+    ref = GC.reference_state_ll(x, we, D)
+    sync(device)
+    err = float((out[:, :S] - ref[:, :S]).abs().max())
+    pad_ok = bool((out[:, S:] <= -1e29).all())
+    agree = ""
+    if lna:
+        got, want = (quantize_lna_u16(lna_normalize(v[:, :S])).long()
+                     for v in (out, ref))
+        steps = int((got - want).abs().max())
+        same = int((got == want).sum())
+        agree = (f"; LNA codes vs plain: max step {steps}, identical "
+                 f"{same}/{got.numel()} ({100.0 * same / got.numel():.3f}%)")
+        if steps > 1 or same < 0.99 * got.numel():
+            fail(f"gmm_state_ll LNA codes off the plain version's ({label})")
+    del out, ref
+    # the product alone, [T, 2D+1] @ [2D+1, K*Spp], in cuBLAS float32
+    xq = torch.cat([x * x, x, torch.ones_like(x[:, :1])], dim=1)
+    w = we[:, :2 * D + 1].permute(1, 0, 2).reshape(2 * D + 1, K * Spp)
+    w = w.contiguous()
+    big = T * Spp > 1e7
+    timer = timed_ms if big else graph_ms
+    n = 5 if big else 50
+    ms = timer(lambda: GC.gmm_state_ll(x, we, D), device, iters=n)
+    plain_ms = timer(lambda: GC.reference_state_ll(x, we, D), device,
+                     iters=n)
+    mm_ms = timer(lambda: xq @ w, device, iters=n)
+    flops = 2.0 * (2 * D + 1) * K * T * Spp
+    # x read, the slabs' 2D+1 live rows read, the result written
+    b = bound(flops, 4.0 * (T * D + K * (2 * D + 1) * Spp + T * Spp))
+    print(f"[4] gmm_state_ll {label} T={T} S={S} (Spp {Spp}) K={K} D={D}: "
+          f"max|d| {err:.3e} (atol 1e-3), padded states <= -1e29: {pad_ok}"
+          f"{agree}; kernel {ms:.4f} ms ({flops * 1e-9:.1f} GFLOP, "
+          f"{flops / ms * 1e-9:.1f} TFLOP/s; bound {b[0]:.4f} ms by "
+          f"{b[1]}, {100 * b[0] / ms:.0f}%), plain {plain_ms:.4f} ms, "
+          f"cuBLAS float32 product alone (yardstick, no logsumexp) "
+          f"{mm_ms:.4f} ms", flush=True)
+    if not (err <= 1e-3 and pad_ok):
+        fail(f"gmm_state_ll disagrees with its plain version ({label})")
+    return err, ms, plain_ms, mm_ms, b
+
+
+def phase_gmm(device, task, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):
+    """K1 at the bench scoring model, on real features of noise audio,
+    and at one 8 s utterance against the main path's model (K=1)."""
     from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
     from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
-    from aaltoasr_tpu_torch.ops import gmm_cuda as GC
-    from aaltoasr_tpu_torch.ops.gmm import GmmScorer
     from aaltoasr_tpu_torch.synth import MFCC_CFG, random_model
     fg = FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device)
     n = int(16000 * seconds)
@@ -192,23 +296,15 @@ def phase_gmm(device, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):
     samples = torch.randn(n_utts, n, generator=g, device=device) * 1000.0
     feats = fg.features_batch(samples, np.full(n_utts, n))
     x = feats.reshape(-1, feats.shape[-1]).contiguous()
-    scorer = GmmScorer.from_model(random_model(G=G, S=S, D=39, K=K),
-                                  device=device)
-    fused = GC.FusedGmmScorer.from_scorer(scorer)
-    out = GC.gmm_state_ll(x, fused.we, 39)
-    ref = GC.reference_state_ll(x, fused.we, 39)
-    sync(device)
-    err = float((out[:, :S] - ref[:, :S]).abs().max())
-    pad_ok = bool((out[:, S:] <= -1e29).all())
-    ms = timed_ms(lambda: GC.gmm_state_ll(x, fused.we, 39), device, iters=5)
-    plain_ms = timed_ms(lambda: GC.reference_state_ll(x, fused.we, 39),
-                        device, iters=5)
-    print(f"[4] gmm_state_ll T={x.shape[0]} S={S} K={K} D=39: max|d| "
-          f"{err:.3e} (atol 1e-3), padded states <= -1e29: {pad_ok}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    if not (err <= 1e-3 and pad_ok):
-        fail("gmm_state_ll disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    err, ms, plain_ms, mm_ms, b = _gmm_shape(
+        device, x, random_model(G=G, S=S, D=39, K=K), "scoring", lna=True)
+    utt = fg.features(samples[0, :128000]).contiguous()
+    err_u, ms_u, plain_u, mm_u, _ = _gmm_shape(device, utt, task.model,
+                                               "one utterance")
+    return {"max_abs_err": max(err, err_u), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "product_ms": mm_ms, "utt_ms": ms_u, "utt_plain_ms": plain_u,
+            "utt_product_ms": mm_u}
 
 
 def _read_codes(path) -> np.ndarray:
@@ -237,7 +333,8 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     pp.fg = FeatureGenerator(cfg, fused_mfcc=True, device=device)
     argv = ["-b", paths["am"], "-c", paths["cfg"], "-l", paths["lexicon"],
             "-n", paths["lm"], "-r", paths["recipe"], "-w", workdir,
-            "--dur", paths["am"] + ".dur", "--engine", "dense"]
+            "--dur", paths["am"] + ".dur", "--engine", "dense",
+            "--device", device.type]
 
     mfcc_core.launches = 0
     gmm_state_ll.launches = 0
@@ -264,6 +361,9 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
         fail("recognize result lines do not follow the recipe")
     if min(launches.values()) < 1:
         fail(f"a kernel was not launched on the main path: {launches}")
+    if launches["gmm_state_ll"] != n_wavs:
+        fail(f"gmm_state_ll: {launches['gmm_state_ll']} launches for "
+             f"{n_wavs} utterances, not one each")
 
     # the plain path (unfused frontend, gather scorer) on the same card
     plain = PhoneProbs(paths["am"], cfg, lna_bytes=2, device=device)
@@ -334,14 +434,14 @@ def main() -> int:
 
     phase_build()
     mfcc = phase_mfcc(device)
-    gmm = phase_gmm(device)
 
     from aaltoasr_tpu_torch.synth import synth_task
     t0 = time.perf_counter()
     task = synth_task(num_words=1000, order=3, triphone=True, durations=True)
     print(f"[5] task built in {time.perf_counter() - t0:.1f} s: "
           f"{task.tree.num_nodes} tree nodes, {task.fsa.num_states} LM "
-          f"states", flush=True)
+          f"states, {task.model.num_states} tied states", flush=True)
+    gmm = phase_gmm(device, task)
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_main_path(device, task, workdir)
     agree, tot = phase_decode(device, task, card=card)

@@ -1,5 +1,8 @@
 """PyTorch port, CLIs: `phone_probs` then `recognize --engine dense` on
-the recognize-CLI test task, against the JAX package's CLIs (CPU)."""
+the recognize-CLI test task, against the JAX package's CLIs (CPU; the
+port's CLIs get ``--device cpu``, since they default to the GPU)."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -11,6 +14,8 @@ from aaltoasr_tpu.formats.lna import read_lna
 
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.recognize import main as t_recognize
+from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 
 from tests.test_recognize_cli import _task
 
@@ -24,6 +29,10 @@ def _args(tmp_path, recipe, work):
             "-l", str(tmp_path / "lex.txt"), "-n", str(tmp_path / "lm.arpa"),
             "-r", str(recipe), "-w", str(tmp_path / work),
             "--lm-scale", "2", "--duration-scale", "0"]
+
+
+def _port_args(tmp_path, recipe, work):
+    return _args(tmp_path, recipe, work) + ["--device", "cpu"]
 
 
 def _lines(capsys, main, argv):
@@ -47,8 +56,9 @@ def test_phone_probs_lnas_match_reference(tmp_path, fused):
         (tmp_path / out).mkdir()
         argv = ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
                 "-r", str(recipe), "-o", str(tmp_path / out)]
-        assert main(argv + (["--fused"] if fused and out == "port"
-                            else [])) == 0
+        if out == "port":
+            argv += ["--device", "cpu"] + (["--fused"] if fused else [])
+        assert main(argv) == 0
     diffs = []
     for u in range(3):
         ref = _codes(tmp_path / "ref" / f"u{u}.wav.lna")
@@ -63,7 +73,8 @@ def test_recognize_dense_matches_reference(tmp_path, capsys):
     recipe = _task(tmp_path)
     dense = ["--engine", "dense", "--decode-batch", "2"]
     ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref") + dense)
-    got = _lines(capsys, t_recognize, _args(tmp_path, recipe, "port") + dense)
+    got = _lines(capsys, t_recognize,
+                 _port_args(tmp_path, recipe, "port") + dense)
     assert len(ref) == 3 and got == ref
 
 
@@ -74,11 +85,12 @@ def test_fused_phone_probs_then_recognize(tmp_path, capsys):
     (tmp_path / "port" / "lna").mkdir(parents=True)
     assert t_phone_probs(["-b", str(tmp_path / "am"),
                           "-c", str(tmp_path / "feats.cfg"),
-                          "-r", str(recipe), "--fused",
+                          "-r", str(recipe), "--fused", "--device", "cpu",
                           "-o", str(tmp_path / "port" / "lna")]) == 0
     dense = ["--engine", "dense"]
     ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref") + dense)
-    got = _lines(capsys, t_recognize, _args(tmp_path, recipe, "port") + dense)
+    got = _lines(capsys, t_recognize,
+                 _port_args(tmp_path, recipe, "port") + dense)
     assert got == ref
 
 
@@ -91,7 +103,8 @@ def test_morph_lm(tmp_path, capsys):
         "\n\\2-grams:\n-0.3 <s> aa\n-0.3 aa <w>\n-0.3 <w> </s>\n\n\\end\\\n")
     dense = ["--engine", "dense"]
     ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref") + dense)
-    got = _lines(capsys, t_recognize, _args(tmp_path, recipe, "port") + dense)
+    got = _lines(capsys, t_recognize,
+                 _port_args(tmp_path, recipe, "port") + dense)
     assert len(ref) == 3 and got == ref
 
 
@@ -104,4 +117,34 @@ def test_morph_lm(tmp_path, capsys):
 def test_unported_options_raise(tmp_path, extra, match):
     recipe = _task(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
-        t_recognize(_args(tmp_path, recipe, "port") + extra)
+        t_recognize(_port_args(tmp_path, recipe, "port") + extra)
+
+
+@pytest.mark.parametrize("cli", ["phone_probs", "recognize"])
+def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
+    """With no GPU and no --device the CLIs raise; they never fall back
+    to the CPU on their own (and run with --device cpu, as above)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    recipe = _task(tmp_path)
+    if cli == "phone_probs":
+        (tmp_path / "port").mkdir()
+        main, argv = t_phone_probs, [
+            "-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
+            "-r", str(recipe), "-o", str(tmp_path / "port")]
+    else:
+        main = t_recognize
+        argv = _args(tmp_path, recipe, "port") + ["--engine", "dense"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not list((tmp_path / "port").rglob("*.lna"))
+
+
+@pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch])
+def test_entry_points_default_to_cuda(monkeypatch, cls):
+    assert inspect.signature(cls).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if cls is PhoneProbs:
+            cls("no-model-read-before-the-device-check", "feats.cfg")
+        else:
+            cls(None, None, None)

@@ -129,7 +129,8 @@ class TestDenseDecode:
         ref = JDense(tree, fsa, model, cfg)
         port = DenseBeamSearch(
             convert.prefix_tree(tree), convert.ngram_fsa(fsa),
-            convert.hmm_model(model), convert.search_config(cfg))
+            convert.hmm_model(model), convert.search_config(cfg),
+            device="cpu")
         for seed, seq, noise in self.CASES:
             obs = np.array(synth_obs(tree, model, seq, noise=noise,
                                      seed=seed))
@@ -153,7 +154,8 @@ class TestDenseDecode:
                                                          lattice=False)
         port = DenseBeamSearch(
             convert.prefix_tree(tree), convert.ngram_fsa(fsa),
-            convert.hmm_model(model), convert.search_config(cfg))
+            convert.hmm_model(model), convert.search_config(cfg),
+            device="cpu")
         got = port.decode_batch(pad, n)
         single = [port.decode(obs1), port.decode(obs2)]
         for r, g, s in zip(ref, got, single):
@@ -184,7 +186,8 @@ class TestDenseDecode:
         ref = JDense(tree, fsa, model, cfg).decode_batch(obs, n,
                                                          lattice=False)
         got = DenseBeamSearch(task.tree, task.fsa, task.model,
-                              convert.search_config(cfg)).decode_batch(obs, n)
+                              convert.search_config(cfg),
+                              device="cpu").decode_batch(obs, n)
         assert any(r.words for r in ref)
         for r, g in zip(ref, got):
             assert g.words == r.words
@@ -194,6 +197,6 @@ class TestDenseDecode:
         model, tree, fsa = make_decode_task()
         port = DenseBeamSearch(convert.prefix_tree(tree),
                                convert.ngram_fsa(fsa),
-                               convert.hmm_model(model))
+                               convert.hmm_model(model), device="cpu")
         with pytest.raises(NotImplementedError, match="lattice"):
             port.decode(np.zeros((5, 4), np.float32), lattice=True)
