@@ -1,9 +1,10 @@
 """phone_probs: recipe -> per-utterance LNA emission probability files.
 
 Counterpart of `aaltoasr_tpu/cli/phone_probs.py`, with the same flags
-(`aku/phone_probs.cc:46-110`), plus ``--device`` (default ``cuda``; with
-no GPU it raises unless ``--device cpu`` is given).  Speaker configurations (-S) and Gaussian clustering
-(-C) are not ported yet and raise NotImplementedError.
+(`aku/phone_probs.cc:46-110`: speaker configurations -S, Gaussian
+clustering -C with --eval-minc/--eval-ming, --sort-recipe), plus
+``--device`` (default ``cuda``; with no GPU it raises unless ``--device
+cpu`` is given).
 """
 
 from __future__ import annotations
@@ -50,9 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batch process index")
     p.add_argument("-i", "--info", type=int, default=0, help="info level")
     p.add_argument("--fused", action="store_true",
-                   help="score with the gather-free fused kernel "
-                        "(ops/gmm_cuda.py; deltas below the 2-byte "
-                        "quantization step; plain diagonal GMMs)")
+                   help="run the MFCC core and the state scoring as fused "
+                        "kernels (ops/frontend_cuda.py, ops/gmm_cuda.py; "
+                        "deltas below the 2-byte quantization step; plain "
+                        "diagonal GMMs, no -C clustering)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a GPU "
                         "unless cpu is given)")

@@ -56,19 +56,38 @@ def search_config(ref) -> SearchConfig:
 
 
 def gmm_scorer(ref, device: torch.device | str = "cpu") -> GmmScorer:
-    """A reference diagonal `GmmScorer`'s tables on ``device``."""
-    if ref.full_cov or ref.sub_basis or ref.cluster_of is not None:
-        raise NotImplementedError("only diagonal, ungated scorers convert")
+    """A reference `GmmScorer`'s tables on ``device``: diagonal or
+    full-covariance, with its subspace and cluster tables."""
 
-    def dev(a):
-        return torch.as_tensor(np.array(a), device=device)   # a writable copy
+    def dev(a, dtype=None):
+        a = np.array(a)                                    # a writable copy
+        return torch.as_tensor(a if dtype is None else a.astype(dtype),
+                               device=device)
 
+    gated = ref.cluster_of is not None
     return GmmScorer(
         dim=ref.dim, num_states=ref.num_states,
         num_gaussians=ref.num_gaussians,
         score_matrix=dev(ref.score_matrix), score_bias=dev(ref.score_bias),
-        comp_idx=dev(np.asarray(ref.comp_idx).astype(np.int64)),
-        comp_logw=dev(ref.comp_logw))
+        comp_idx=dev(ref.comp_idx, np.int64), comp_logw=dev(ref.comp_logw),
+        full_cov=ref.full_cov,
+        sub_basis=tuple(dev(b) for b in ref.sub_basis),
+        sub_lambda=tuple(dev(lam) for lam in ref.sub_lambda),
+        cluster_of=dev(ref.cluster_of, np.int64) if gated else None,
+        cluster_matrix=dev(ref.cluster_matrix) if gated else None,
+        cluster_bias=dev(ref.cluster_bias) if gated else None,
+        cluster_sizes=dev(ref.cluster_sizes, np.int64) if gated else None,
+        min_eval_clusters=ref.min_eval_clusters,
+        min_eval_gauss=ref.min_eval_gauss)
+
+
+def feature_params(ref, fg) -> None:
+    """Load a reference `FeatureGenerator`'s runtime parameters
+    (``ref.params``, e.g. after `apply_speaker_config`) into the port's
+    generator ``fg``, on its device."""
+    for name, params in ref.params.items():
+        fg._dev_params[name] = fg._upload(
+            {k: np.asarray(v) for k, v in params.items()})
 
 
 def fused_gmm_scorer(ref, device: torch.device | str = "cpu") -> FusedGmmScorer:

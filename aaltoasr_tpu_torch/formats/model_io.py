@@ -110,6 +110,8 @@ def read_gk(path) -> tuple[np.ndarray, np.ndarray, str, list, dict, dict]:
     """Parse a .gk -> (means, covars, cov_type, gauss_kind, full_covars,
     subspaces) where subspaces packs the PCGMM/SCGMM payload
     (PDFPool::read_gk, Distributions.cc:2812-2911)."""
+    from aaltoasr_tpu_torch.ops.subspaces import (
+        ExponentialSubspace, PrecisionSubspace)
     with open(path) as f:
         tokens = f.read().split()
     it = iter(tokens)
@@ -137,6 +139,33 @@ def read_gk(path) -> tuple[np.ndarray, np.ndarray, str, list, dict, dict]:
         covars[i] = np.diag(cov)
         gauss_kind.append("full")
 
+    def read_pcgmm(i):
+        ssid = int(next(it))
+        ps = subspaces["precision"][ssid]
+        ss_dim = int(next(it))
+        tm = np.array([float(next(it)) for _ in range(dim)])
+        lam = np.array([float(next(it)) for _ in range(ss_dim)])
+        subspaces["pcgmm"][i] = (ssid, tm, lam)
+        P = ps.compute_precision(lam)
+        cov = np.linalg.inv(P)
+        means[i] = cov @ tm
+        covars[i] = np.diag(cov)
+        full_covars[i] = cov
+        gauss_kind.append("pcgmm")
+
+    def read_scgmm(i):
+        ssid = int(next(it))
+        es = subspaces["exponential"][ssid]
+        ss_dim = int(next(it))
+        lam = np.array([float(next(it)) for _ in range(ss_dim)])
+        subspaces["scgmm"][i] = (ssid, lam)
+        psi, P = es.split_theta(es.compute_theta(lam))
+        cov = np.linalg.inv(P)
+        means[i] = cov @ psi
+        covars[i] = np.diag(cov)
+        full_covars[i] = cov
+        gauss_kind.append("scgmm")
+
     if cov_type == "variable":
         i = 0
         while i < num:
@@ -145,11 +174,19 @@ def read_gk(path) -> tuple[np.ndarray, np.ndarray, str, list, dict, dict]:
                 read_diag(i)
             elif kind == "full":
                 read_full(i)
-            elif kind in ("precision_subspace", "exponential_subspace",
-                          "pcgmm", "scgmm"):
-                raise NotImplementedError(
-                    f"{kind} Gaussians: subspace scoring is not ported "
-                    "yet (ROADMAP queue 1, subspace scoring)")
+            elif kind == "precision_subspace":
+                ssid = int(next(it))
+                subspaces["precision"][ssid] = PrecisionSubspace.read(it)
+                continue                      # no pool slot consumed
+            elif kind == "exponential_subspace":
+                ssid = int(next(it))
+                subspaces["exponential"][ssid] = \
+                    ExponentialSubspace.read(it)
+                continue
+            elif kind == "pcgmm":
+                read_pcgmm(i)
+            elif kind == "scgmm":
+                read_scgmm(i)
             else:
                 raise ValueError(f"Unknown model type {kind}")
             i += 1

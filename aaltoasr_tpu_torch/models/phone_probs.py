@@ -5,7 +5,11 @@ PPToolbox, `aku/PhoneProbsToolbox.{hh,cc}`, and `aku/phone_probs.cc`).
 Features, scoring, normalization and 2-byte quantization run on the
 pipeline's device (the GPU unless the caller passes ``device="cpu"``);
 the host reads audio and writes the LNA payload.
-``fused=True`` scores with the gather-free kernel (`ops/gmm_cuda.py`).
+``fused=True`` runs the MFCC core as one kernel (`ops/frontend_cuda.py`)
+where the configuration has it, and scores with the gather-free kernel
+(`ops/gmm_cuda.py`).  A speaker configuration (-S) sets feature
+parameters per speaker and utterance and folds model-namespace CMLLR
+into the Gaussians; a clustering (-C) gates the Gaussian evaluation.
 """
 
 from __future__ import annotations
@@ -21,12 +25,10 @@ from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
 from aaltoasr_tpu_torch.formats.lna import write_lna
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_model
 from aaltoasr_tpu_torch.formats.recipe import Recipe
+from aaltoasr_tpu_torch.formats.spkc import SpeakerConfig
 from aaltoasr_tpu_torch.frontend.audio import read_audio
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer, quantize_lna_u16
-
-_ADAPTATION = ("is not ported yet (ROADMAP queue 1, slice 4: adaptation)")
-
 
 class PhoneProbs:
     """Feature + GMM scoring pipeline for LNA generation."""
@@ -34,14 +36,19 @@ class PhoneProbs:
     def __init__(self, model: HmmModel | str, config: FeatureConfig | str,
                  lna_bytes: int = 2, normalize: bool = True,
                  fused: bool = False, device: torch.device | str = "cuda"):
-        """fused=True scores states with the gather-free kernel
-        (`ops/gmm_cuda.py`); it differs from the plain path only by the
-        logsumexp reduction order, below the 2-byte quantization step."""
+        """fused=True runs both kernels: the MFCC core (the JAX package
+        keeps its Pallas twin off by default, slower than XLA's fusion on
+        the TPU; on the H100 the kernel is the faster path) and the
+        gather-free state scoring.  They differ from the plain path only
+        in summation order, below the 2-byte quantization step.  Plain
+        diagonal GMMs only; incompatible with clustering and model-space
+        CMLLR."""
         self.device = resolve_device(device)
         if isinstance(model, str):
             model = read_model(model)
         self.model = model
-        self.fg = FeatureGenerator(config, device=self.device)
+        self.fg = FeatureGenerator(config, fused_mfcc=fused,
+                                   device=self.device)
         self.scorer = GmmScorer.from_model(model, device=self.device)
         self.fused_scorer = None
         if fused:
@@ -55,15 +62,60 @@ class PhoneProbs:
             raise ValueError("Invalid number of LNA bytes")
         self.lna_bytes = lna_bytes
         self.normalize = normalize
+        self.speaker_config: SpeakerConfig | None = None
 
+    # -- speaker adaptation ----------------------------------------------
     def read_clustering(self, path, eval_minc: float = 0.0,
                         eval_ming: float = 0.1) -> None:
-        raise NotImplementedError(
-            "Gaussian clustering (-C) is not ported yet (ROADMAP queue 1: "
-            "full-covariance, subspace and clustered scoring)")
+        """Gaussian clustering for gated evaluation (phone_probs -C,
+        `aku/phone_probs.cc:112-117`)."""
+        from aaltoasr_tpu_torch.train.gcluster import read_gcl
+        if self.fused_scorer is not None:
+            raise ValueError("fused scoring does not support "
+                             "cluster-gated evaluation")
+        assign, C = read_gcl(path)
+        self.scorer = self.scorer.with_clustering(
+            self.model, assign, C, eval_minc, eval_ming)
 
     def read_speaker_config(self, path) -> None:
-        raise NotImplementedError(f"speaker configuration (-S) {_ADAPTATION}")
+        self.speaker_config = SpeakerConfig.load(path)
+
+    def set_speaker(self, speaker_id: str) -> None:
+        if self.speaker_config is None or not speaker_id:
+            return
+        params = self.speaker_config.speaker_params(speaker_id)
+        self.fg.apply_speaker_config(params)
+        self._apply_model_transforms(params)
+
+    def _apply_model_transforms(self, params: dict) -> None:
+        """Model-namespace CMLLR blocks: rebuild the scorer with the
+        per-class transforms folded into (full-covariance) Gaussians
+        (ModelModules ConstrainedMllr; SpeakerConfig model namespace)."""
+        from aaltoasr_tpu_torch.train.mllr import apply_model_cmllr
+        blocks = [cfg for (ns, _name), cfg in params.items()
+                  if ns == "model" and cfg.exists("classes")]
+        if not blocks:
+            return
+        cfg = blocks[0]
+        C = cfg.get_int("classes")
+        D = self.model.dim
+        Ws = []
+        for c in range(C):
+            A = np.asarray(cfg.get_float_vec(f"matrix{c}")).reshape(D, D)
+            b = np.asarray(cfg.get_float_vec(f"bias{c}"))
+            Ws.append(np.concatenate([b[:, None], A], axis=1))
+        cls = np.asarray(cfg.get_float_vec("gauss_class"), dtype=np.int64)
+        if self.fused_scorer is not None:
+            raise ValueError("fused scoring does not support "
+                             "model-space CMLLR (full-cov rebuild)")
+        adapted = apply_model_cmllr(self.model, Ws, cls)
+        self.scorer = GmmScorer.from_model(adapted, device=self.device)
+
+    def set_utterance(self, utterance_id: str) -> None:
+        if self.speaker_config is None or not utterance_id:
+            return
+        self.fg.apply_speaker_config(
+            self.speaker_config.utterance_params(utterance_id))
 
     # -- scoring ----------------------------------------------------------
     def _state_ll(self, samples: torch.Tensor) -> torch.Tensor:
@@ -124,6 +176,8 @@ class PhoneProbs:
                 out_file = os.path.join(out_dir, os.path.basename(out_file))
             if no_overwrite and os.path.exists(out_file):
                 continue
+            self.set_speaker(rinfo.speaker_id)
+            self.set_utterance(rinfo.utterance_id)
             if info > 0:
                 print(f"Processing file: {rinfo.audio_path}", file=sys.stderr)
             self.generate_to_file(rinfo.audio_path, out_file)

@@ -208,8 +208,13 @@ class FusedGmmScorer:
 
     @classmethod
     def from_scorer(cls, scorer: GmmScorer) -> "FusedGmmScorer":
-        """Build from a diagonal-covariance `GmmScorer`, on its device.
-        On a GPU the kernel's slab table is made here, once."""
+        """Build from a diagonal-covariance `GmmScorer`, on its device
+        (no full-cov / subspace / cluster-gated models: those keep the
+        plain path).  On a GPU the kernel's slab table is made here, once."""
+        if scorer.full_cov or scorer.sub_basis or (
+                scorer.cluster_of is not None):
+            raise ValueError(
+                "fused scoring supports plain diagonal GMMs only")
         if smem_bytes(1, slab_depth(scorer.dim)) > SMEM_LIMIT:
             raise ValueError(f"feature dimension {scorer.dim} exceeds the "
                              "fused kernel's shared memory")

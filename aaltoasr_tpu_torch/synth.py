@@ -11,6 +11,7 @@ the reference.  `write_task` writes a task as the files the CLIs read:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import wave
 import zlib
@@ -95,6 +96,170 @@ def mfcc_cfg(rate: int = 16000, root: bool = False,
     if not magnitude:
         text = text.replace("type fft\n", "type fft\n  magnitude 0\n")
     return text
+
+
+def _module(name, mtype, sources=None, **items) -> str:
+    lines = [f"  name {name}", f"  type {mtype}"]
+    if sources:
+        lines.append(f"  sources {sources}")
+    lines += [f"  {k} {v}" for k, v in items.items()]
+    return "module\n{\n" + "\n".join(lines) + "\n}\n"
+
+
+def _floats(a) -> str:
+    return " ".join(f"{float(v):.6g}" for v in np.ravel(a))
+
+
+def _normalization(source: str, norm) -> str:
+    """Given ``norm`` = (mean, scale), a `norm` normalization module on
+    ``source`` (the global mean and variance normalization a `feanorm`
+    file holds), else nothing."""
+    if norm is None:
+        return ""
+    mean, scale = norm
+    return _module("norm", "normalization", source, mean=_floats(mean),
+                   scale=_floats(scale))
+
+
+def norm_stats(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(mean, 1 / standard deviation) per dimension of [N, d] frames: the
+    items of a normalization module that makes them zero-mean and of
+    unit variance."""
+    frames = np.asarray(frames, dtype=np.float64)
+    return frames.mean(0), 1.0 / frames.std(0)
+
+
+def splice_cfg(ceps: int = 12, out_dim: int = 39, seed: int = 0,
+               norm=None) -> str:
+    """Splice + LDA configuration: MFCC (``ceps`` cepstra) + power ->
+    delta -> merge -> concat (left 1, right 1) -> `lda`, a fixed random
+    lin_transform down to ``out_dim`` [-> `norm`, a normalization given
+    ``norm``] -> `cmllr`, an identity lin_transform a speaker
+    configuration replaces per speaker.  The fft -> {mel -> dct, power}
+    core fuses."""
+    width = 6 * (ceps + 1)
+    lda = np.random.default_rng(seed).normal(
+        0, 1 / np.sqrt(width), (out_dim, width))
+    return (_module("audio", "audiofile", sample_rate=16000)
+            + _module("fft", "fft", "audio")
+            + _module("mel", "mel", "fft")
+            + _module("dct", "dct", "mel", dim=ceps)
+            + _module("power", "power", "fft")
+            + _module("cat", "merge", "dct power")
+            + _module("delta", "delta", "cat", width=2)
+            + _module("both", "merge", "cat delta")
+            + _module("splice", "concat", "both", left=1, right=1)
+            + _module("lda", "lin_transform", "splice", dim=out_dim,
+                      matrix=_floats(lda))
+            + _normalization("lda", norm)
+            + _module("cmllr", "lin_transform",
+                      "lda" if norm is None else "norm", dim=out_dim))
+
+
+def vtln_cfg(ceps: int = 12, norm=None, **vtln) -> str:
+    """VTLN configuration: fft -> `vtln` (items ``vtln``, e.g.
+    ``{"all-pass": 1}``) -> mel -> dct, with power, deltas and
+    accelerations: 3 * (ceps + 1) features [-> `norm`, a normalization
+    given ``norm``].  It does not fuse (the fft feeds the vtln
+    module)."""
+    return (_module("audio", "audiofile", sample_rate=16000)
+            + _module("fft", "fft", "audio")
+            + _module("vtln", "vtln", "fft", **vtln)
+            + _module("mel", "mel", "vtln")
+            + _module("dct", "dct", "mel", dim=ceps)
+            + _module("power", "power", "fft")
+            + _module("cat", "merge", "dct power")
+            + _module("delta", "delta", "cat", width=2)
+            + _module("accel", "delta", "delta", width=2)
+            + _module("out", "merge", "cat delta accel")
+            + _normalization("out", norm))
+
+
+def _spkc_block(kind: str, ident: str, modules: dict) -> str:
+    out = [f"{kind} {ident}", "{"]
+    for name, items in modules.items():
+        out += [f"  {name}", "  {"]
+        out += [f"    {k} {v}" for k, v in items.items()]
+        out.append("  }")
+    return "\n".join(out + ["}", ""])
+
+
+def speaker_spkc(speakers, kind: str, dim: int = 0, seed: int = 0) -> str:
+    """A .spkc text with one block per speaker: ``kind`` "lin_transform"
+    gives each a `cmllr` transform near the identity (`splice_cfg`),
+    "vtln" a `vtln` warp factor from 0.9, 1.0, 1.1 in turn; plus an
+    empty default utterance block."""
+    rng = np.random.default_rng(seed)
+    text = ""
+    for i, spk in enumerate(speakers):
+        if kind == "lin_transform":
+            mat = np.eye(dim) + 0.05 * rng.normal(0, 1, (dim, dim))
+            mods = {"cmllr": {"matrix": _floats(mat),
+                              "bias": _floats(rng.normal(0, 0.1, dim))}}
+        elif kind == "vtln":
+            mods = {"vtln": {"warp_factor": (0.9, 1.0, 1.1)[i % 3]}}
+        else:
+            raise ValueError(f"unknown speaker block kind {kind!r}")
+        text += _spkc_block("speaker", spk, mods)
+    return text + _spkc_block("utterance", "default", {})
+
+
+def cmllr_transforms(dim: int, classes: int, rng) -> list:
+    """``classes`` CMLLR transforms near the identity, each [D, D+1]
+    rows ``[b | A]`` (the form `train.mllr.apply_model_cmllr` takes)."""
+    out = []
+    for _ in range(classes):
+        A = np.eye(dim) + 0.05 * rng.normal(0, 1, (dim, dim))
+        b = rng.normal(0, 0.1, dim)
+        out.append(np.concatenate([b[:, None], A], axis=1))
+    return out
+
+
+def model_cmllr_spkc(speakers, dim: int, num_gaussians: int,
+                     classes: int = 2, seed: int = 0) -> str:
+    """A .spkc text whose speakers each carry a model-namespace CMLLR
+    block: ``classes`` transforms near the identity and a class per
+    Gaussian; plus an empty default utterance block."""
+    rng = np.random.default_rng(seed)
+    text = ""
+    for spk in speakers:
+        items = {"classes": classes,
+                 "gauss_class": " ".join(str(c) for c in rng.integers(
+                     0, classes, num_gaussians))}
+        for c, W in enumerate(cmllr_transforms(dim, classes, rng)):
+            items[f"matrix{c}"] = _floats(W[:, 1:])
+            items[f"bias{c}"] = _floats(W[:, 0])
+        text += _spkc_block("speaker", spk, {"model cmllr": items})
+    return text + _spkc_block("utterance", "default", {})
+
+
+def feature_model(model: model_io.HmmModel, feats: np.ndarray,
+                  var_scale: float, seed: int = 0) -> model_io.HmmModel:
+    """``model`` with its Gaussians moved onto ``feats`` ([N, D] frames of
+    the configuration it will score): means at random frames plus noise
+    of 0.3 of each dimension's spread, variances ``var_scale`` times
+    each dimension's variance, times 0.5 to 2.  On normalized features
+    (`norm_stats`) a quarter of their variance gives peaked posteriors,
+    as a trained model does: most 2-byte LNA codes saturate."""
+    rng = np.random.default_rng(seed)
+    G, D = model.means.shape
+    feats = np.asarray(feats, dtype=np.float64)
+    means = feats[rng.choice(len(feats), G, replace=len(feats) < G)]
+    means = means + rng.normal(0, 0.3 * feats.std(0), (G, D))
+    covars = var_scale * feats.var(0) * rng.uniform(0.5, 2.0, (G, D))
+    return dataclasses.replace(model, means=means, covars=covars)
+
+
+def nearest_clusters(means: np.ndarray, num_clusters: int,
+                     seed: int = 0) -> np.ndarray:
+    """[G] cluster per Gaussian: the nearest (Euclidean) of
+    ``num_clusters`` Gaussians drawn as centers (a `.gcl` clustering
+    without the k-means iterations of `gcluster`)."""
+    rng = np.random.default_rng(seed)
+    centers = means[rng.choice(len(means), num_clusters, replace=False)]
+    d2 = ((means ** 2).sum(1)[:, None] - 2.0 * means @ centers.T
+          + (centers ** 2).sum(1)[None, :])
+    return np.argmin(d2, axis=1).astype(np.int32)
 
 
 def probe_frames(kinds, T: int, W: int, rate: int, seed: int) -> np.ndarray:

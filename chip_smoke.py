@@ -23,7 +23,19 @@ Phases, each printing a summary line:
    be within one step of the plain path's;
 6. the dense decoder at the bench operating point (B=128, T=1,000
    planted observations): planted-word agreement on the first 4
-   utterances and the real-time factor.
+   utterances and the real-time factor;
+7. speaker adaptation on the main path's WAVs (three speakers):
+   `cli.phone_probs -S --fused` with a splice + LDA
+   configuration and a feature transform per speaker (K2 and K1 launch
+   once per utterance) and with VTLN configurations, sinc and all-pass,
+   and a warp per speaker (K1 launches, K2 does not fuse), each against
+   the plain path's LNA codes; warp 1.0 against the unwarped features;
+   `-C` and a model-namespace CMLLR speaker (the full-covariance scorer)
+   on the card against the CPU; then, at the bench scoring model, the
+   full-covariance scorer (model CMLLR, 4 classes), the gated scorer
+   (256 clusters, eval_ming 0.1), one model-CMLLR speaker switch, and
+   the fused scoring batch of the MFCC and the splice + LDA
+   configurations, timed.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -38,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -53,6 +66,7 @@ MFCC_REPLACES = "aaltoasr_tpu/ops/frontend_pallas.py:60"
 GMM_REPLACES = "aaltoasr_tpu/ops/gmm_pallas.py:144"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, the same
+SPEAKERS = ("s0", "s1", "s2")
 
 
 def fail(msg: str):
@@ -284,6 +298,20 @@ def _gmm_shape(device, x, model, label, lna=False):
     return err, ms, plain_ms, mm_ms, b
 
 
+def _noise_batch(device, n_utts, seconds):
+    """[n_utts, seconds at 16 kHz] N(0, 1000^2) samples on the device (seed
+    0) and their lengths."""
+    n = int(16000 * seconds)
+    g = torch.Generator(device=device).manual_seed(0)
+    return (torch.randn(n_utts, n, generator=g, device=device) * 1000.0,
+            np.full(n_utts, n))
+
+
+def _scoring_features(fg, samples, lens):
+    feats = fg.features_batch(samples, lens)
+    return feats.reshape(-1, feats.shape[-1]).contiguous()
+
+
 def phase_gmm(device, task, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):
     """K1 at the bench scoring model, on real features of noise audio,
     and at one 8 s utterance against the main path's model (K=1)."""
@@ -291,11 +319,8 @@ def phase_gmm(device, task, n_utts=32, seconds=10.0, G=10000, S=2500, K=8):
     from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
     from aaltoasr_tpu_torch.synth import MFCC_CFG, random_model
     fg = FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device)
-    n = int(16000 * seconds)
-    g = torch.Generator(device=device).manual_seed(0)
-    samples = torch.randn(n_utts, n, generator=g, device=device) * 1000.0
-    feats = fg.features_batch(samples, np.full(n_utts, n))
-    x = feats.reshape(-1, feats.shape[-1]).contiguous()
+    samples, lens = _noise_batch(device, n_utts, seconds)
+    x = _scoring_features(fg, samples, lens)
     err, ms, plain_ms, mm_ms, b = _gmm_shape(
         device, x, random_model(G=G, S=S, D=39, K=K), "scoring", lna=True)
     utt = fg.features(samples[0, :128000]).contiguous()
@@ -321,7 +346,6 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
     from aaltoasr_tpu_torch.formats.recipe import Recipe
     from aaltoasr_tpu_torch.frontend.audio import read_audio
-    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
     from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
     from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
     from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
@@ -330,7 +354,6 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     cfg = FeatureConfig.load(paths["cfg"])
     recipe = Recipe.read(paths["recipe"])
     pp = PhoneProbs(paths["am"], cfg, lna_bytes=2, fused=True, device=device)
-    pp.fg = FeatureGenerator(cfg, fused_mfcc=True, device=device)
     argv = ["-b", paths["am"], "-c", paths["cfg"], "-l", paths["lexicon"],
             "-n", paths["lm"], "-r", paths["recipe"], "-w", workdir,
             "--dur", paths["am"] + ".dur", "--engine", "dense",
@@ -419,6 +442,253 @@ def phase_decode(device, task, B=128, T=1000, card=""):
     return agree, tot
 
 
+def _phone_probs(argv, device) -> tuple[dict, float]:
+    """`cli.phone_probs` on `argv`, the kernels' counts set to 0 just
+    before; returns (their launches in this run, wall s)."""
+    from aaltoasr_tpu_torch.cli import phone_probs
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    rc = phone_probs.main(argv)
+    sync(device)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phone_probs {' '.join(argv)} returned {rc}")
+    return ({"mfcc_core": mfcc_core.launches,
+             "gmm_state_ll": gmm_state_ll.launches}, wall)
+
+
+def _code_agreement(got, want, label) -> str:
+    """LNA codes [T, S] (int64 arrays, or lists of them): within one
+    step and >= 99% identical, else fail."""
+    got, want = (np.concatenate([a.ravel() for a in v])
+                 if isinstance(v, list) else v.ravel() for v in (got, want))
+    if got.shape != want.shape:
+        fail(f"{label}: LNA shapes differ")
+    steps = int(np.abs(got - want).max())
+    same = int((got == want).sum())
+    if steps > 1 or same < 0.99 * got.size:
+        fail(f"{label}: LNA codes max step {steps}, identical "
+             f"{same}/{got.size}")
+    return (f"max step {steps}, identical {same}/{got.size} "
+            f"({100.0 * same / got.size:.3f}%)")
+
+
+def _lna_dir(path, n_wavs) -> list:
+    return [_read_codes(os.path.join(path, f"u{u}.lna"))
+            for u in range(n_wavs)]
+
+
+def phase_adapt(device, task, workdir, n_wavs=4) -> dict:
+    """`phone_probs -S/-C` on the main path's WAVs; returns the kernels'
+    launches per fused path."""
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.formats.spkc import SpeakerConfig
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.synth import (
+        MFCC_CFG, feature_model, model_cmllr_spkc, nearest_clusters,
+        norm_stats, speaker_spkc, splice_cfg, vtln_cfg)
+    from aaltoasr_tpu_torch.train.gcluster import write_gcl
+
+    def path(name):
+        return os.path.join(workdir, name)
+
+    def write(name, text):
+        with open(path(name), "w") as f:
+            f.write(text)
+        return path(name)
+
+    audio = [read_audio(path(f"u{u}.wav"), 16000)[0] for u in range(n_wavs)]
+
+    def normalized(cfg, **items):
+        """The configuration closed by a normalization to zero mean and
+        unit variance over these WAVs (a feanorm file's mean and scale):
+        centered features, as trained systems score them."""
+        fg = FeatureGenerator(FeatureConfig.parse(cfg(**items)),
+                              device=device)
+        return cfg(norm=norm_stats(torch.cat(
+            [fg.features(a) for a in audio]).cpu().numpy()), **items)
+    recipe = write("adapt.recipe", "".join(
+        f"audio={path(f'u{u}.wav')} lna=u{u}.lna "
+        f"speaker={SPEAKERS[u % 3]} utterance=u{u}\n" for u in range(n_wavs)))
+
+    def phone_probs(tag, cfg, am, extra, dev=device.type):
+        os.makedirs(path(tag))
+        launches, wall = _phone_probs(
+            ["-b", am, "-c", cfg, "-r", recipe, "-o", path(tag),
+             "--device", dev] + extra, device)
+        return _lna_dir(path(tag), n_wavs), launches, wall
+
+    configs = {
+        "splice_lda": (normalized(splice_cfg),
+                       speaker_spkc(SPEAKERS, "lin_transform", dim=39)),
+        "vtln_sinc": (normalized(vtln_cfg), speaker_spkc(SPEAKERS, "vtln")),
+        "vtln_allpass": (normalized(vtln_cfg, **{"all-pass": 1}),
+                         speaker_spkc(SPEAKERS, "vtln")),
+    }
+    by_path = {}
+    for name, (cfg_text, spkc_text) in configs.items():
+        cfg = write(f"{name}.cfg", cfg_text)
+        spkc = write(f"{name}.spkc", spkc_text)
+        fg = FeatureGenerator(FeatureConfig.parse(cfg_text), device=device)
+        feats = torch.cat([fg.features(a) for a in audio]).cpu().numpy()
+        # peaked posteriors, as a trained model gives (most codes
+        # saturate); and, for the card against the CPU below, the CPU
+        # parity tests' broad model (their frontends differ in the sixth
+        # digit, which the peaked one magnifies at some codes)
+        for tag, var_scale in (("", 0.25), ("_broad", 16.0)):
+            model_io.write_model(path(f"am_{name}{tag}"), feature_model(
+                task.model, feats, var_scale, seed=7))
+        fused, launches, wall = phone_probs(
+            f"{name}_fused", cfg, path(f"am_{name}"),
+            ["-S", spkc, "--fused"])
+        plain, plain_launches, plain_wall = phone_probs(
+            f"{name}_plain", cfg, path(f"am_{name}"), ["-S", spkc])
+        want = {"mfcc_core": n_wavs if name == "splice_lda" else 0,
+                "gmm_state_ll": n_wavs}
+        if launches != want:
+            fail(f"{name}: launches {launches}, expected {want}")
+        if any(plain_launches.values()):
+            fail(f"{name}: the plain path launched {plain_launches}")
+        agree = _code_agreement(fused, plain, name)
+        print(f"[7] phone_probs -S {name} --fused: launches "
+              f"{launches}; {wall:.3f} s (plain {plain_wall:.3f} s); LNA "
+              f"codes vs plain: {agree}", flush=True)
+        by_path[name] = launches
+
+    # warp 1.0 with the sinc table: the bins themselves
+    warped = FeatureGenerator(FeatureConfig.parse(vtln_cfg()), device=device)
+    warped.apply_speaker_config(SpeakerConfig.parse(
+        configs["vtln_sinc"][1]).speaker_params(SPEAKERS[1]))
+    unwarped = FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device)
+    a, b = warped.features(audio[0]), unwarped.features(audio[0])
+    err = float((a - b).abs().max())
+    print(f"[7] vtln warp 1.0 (sinc) vs unwarped features {tuple(b.shape)}: "
+          f"max|d| {err:.3e} (rtol 1e-5, atol 1e-4*max)", flush=True)
+    if a.shape != b.shape or not _within(a, b, 1e-5,
+                                         1e-4 * float(b.abs().max())):
+        fail("vtln warp 1.0 does not give the unwarped features")
+
+    # -C on the diagonal model, a model-namespace CMLLR speaker: the card
+    # against the CPU, each computing its own features
+    cfg, am = path("splice_lda.cfg"), path("am_splice_lda_broad")
+    model = model_io.read_model(am)
+    write_gcl(path("c.gcl"), nearest_clusters(model.means, 64), 64)
+    mllr = write("mllr.spkc", model_cmllr_spkc(
+        SPEAKERS, model.dim, model.num_gaussians, classes=4))
+    for tag, extra in (("C", ["-S", path("splice_lda.spkc"),
+                              "-C", path("c.gcl")]),
+                       ("S_model_cmllr", ["-S", mllr])):
+        card, launches, wall = phone_probs(f"{tag}_cuda", cfg, am, extra)
+        cpu, _, cpu_wall = phone_probs(f"{tag}_cpu", cfg, am, extra, "cpu")
+        if any(launches.values()):
+            fail(f"-{tag}: the plain path launched {launches}")
+        agree = _code_agreement(card, cpu, f"-{tag} card vs CPU")
+        print(f"[7] phone_probs -{tag.replace('_', ' ')} (plain path, "
+              f"splice + LDA): card {wall:.3f} s, CPU {cpu_wall:.3f} s; LNA "
+              f"codes card vs CPU: {agree}", flush=True)
+    return by_path
+
+
+def phase_adapt_full_width(device, n_utts=32, seconds=10.0, G=10000,
+                           S=2500, K=8, clusters=256, rounds=8) -> dict:
+    """The full-covariance and gated scorers and one model-CMLLR speaker
+    switch at the bench scoring model, and the fused scoring batch of
+    the MFCC and the splice + LDA configurations."""
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.formats.spkc import SpeakerConfig
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.ops.gmm import GmmScorer, quantize_lna_u16
+    from aaltoasr_tpu_torch.ops.gmm_cuda import FusedGmmScorer
+    from aaltoasr_tpu_torch.synth import (
+        MFCC_CFG, cmllr_transforms, feature_model, nearest_clusters,
+        norm_stats, random_model, speaker_spkc, splice_cfg)
+    from aaltoasr_tpu_torch.train.mllr import apply_model_cmllr
+    samples, lens = _noise_batch(device, n_utts, seconds)
+    x = _scoring_features(
+        FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device),
+        samples, lens)
+    mean, scale = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                   for v in norm_stats(x.cpu().numpy()))
+    x = ((x - mean) * scale).contiguous()     # a normalization module
+    T, D = x.shape
+    model = feature_model(random_model(G=G, S=S, D=D, K=K),
+                          x.cpu().numpy(), 0.25)
+    rng = np.random.default_rng(5)
+    transforms = cmllr_transforms(D, 4, rng)
+    gauss_class = rng.integers(0, 4, G)
+    sync(device)
+    t0 = time.perf_counter()
+    adapted = apply_model_cmllr(model, transforms, gauss_class)
+    full = GmmScorer.from_model(adapted, device=device)
+    sync(device)
+    switch_s = time.perf_counter() - t0
+    assign = nearest_clusters(model.means, clusters)
+    dense = GmmScorer.from_model(model, device=device)
+    gated = dense.with_clustering(model, assign, clusters, 0.0, 0.1)
+    cpu = {"full-cov": GmmScorer.from_model(adapted, device="cpu"),
+           "gated": GmmScorer.from_model(model, device="cpu").with_clustering(
+               model, assign, clusters, 0.0, 0.1)}
+    res = {"switch_s": switch_s}
+    Gp = int(full.score_matrix.shape[1])
+    flops = {"full-cov": 2.0 * T * (D * D + D) * Gp,
+             "gated": 2.0 * T * 2 * D * (Gp + clusters),
+             "diagonal": 2.0 * T * 2 * D * Gp}
+    for name, sc in (("full-cov", full), ("gated", gated),
+                     ("diagonal", dense)):
+        out = sc.state_log_likelihoods(x)
+        if not bool(torch.isfinite(out[:, :S]).all()):
+            fail(f"{name} scorer: non-finite scores at the scoring model")
+        del out
+        ms = timed_ms(lambda: sc.state_log_likelihoods(x), device, iters=5,
+                      warmup=1)
+        agree = ""
+        if name in cpu:
+            got = quantize_lna_u16(sc.lna_log_probs(x[:256])).cpu().long()
+            want = quantize_lna_u16(cpu[name].lna_log_probs(x[:256].cpu()))
+            agree = "; LNA codes card vs CPU (256 frames): " + \
+                _code_agreement(got.numpy(), want.long().numpy(), name)
+        print(f"[7] {name} scorer T={T} G={G} (Gp {Gp}) S={S} K={K} D={D}: "
+              f"{ms:.3f} ms ({flops[name] * 1e-9:.1f} GFLOP of products in "
+              f"IEEE float32){agree}", flush=True)
+        res[f"{name}_ms"] = ms
+    print(f"[7] one model-CMLLR speaker switch at G={G} (4 classes: fold + "
+          f"scorer rebuild, host loop): {switch_s:.3f} s", flush=True)
+
+    # the fused scoring batch (fused MFCC + K1 + LNA normalization)
+    fused = FusedGmmScorer.from_scorer(dense)
+    raw = FeatureGenerator(FeatureConfig.parse(splice_cfg()), device=device)
+    splice = FeatureGenerator(FeatureConfig.parse(splice_cfg(norm=norm_stats(
+        _scoring_features(raw, samples[:2], lens[:2]).cpu().numpy()))),
+        fused_mfcc=True, device=device)
+    splice.apply_speaker_config(SpeakerConfig.parse(speaker_spkc(
+        SPEAKERS, "lin_transform", dim=D)).speaker_params(SPEAKERS[0]))
+    gens = {"mfcc": FeatureGenerator(FeatureConfig.parse(MFCC_CFG),
+                                     fused_mfcc=True, device=device),
+            "splice_lda": splice}
+    times = {name: [] for name in gens}
+    for r in range(rounds):
+        for name in (list(gens) if r % 2 == 0 else list(gens)[::-1]):
+            sync(device)
+            t0 = time.perf_counter()
+            lp = fused.lna_log_probs(gens[name].features_batch(samples, lens))
+            sync(device)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            del lp
+    for name, ts in times.items():
+        res[f"batch_{name}_ms"] = float(np.median(ts[2:]))
+    print(f"[7] fused scoring batch ({n_utts} x {seconds:g} s, fused MFCC + "
+          f"K1 + LNA normalization, host clock, median of {rounds - 2}): "
+          + ", ".join(f"{name} {res[f'batch_{name}_ms']:.3f} ms"
+                      for name in gens), flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -444,9 +714,14 @@ def main() -> int:
     gmm = phase_gmm(device, task)
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_main_path(device, task, workdir)
-    agree, tot = phase_decode(device, task, card=card)
-    if agree < tot - 1:
-        fail(f"planted-word check {agree}/{tot} below {tot - 1}/{tot}")
+        agree, tot = phase_decode(device, task, card=card)
+        if agree < tot - 1:
+            fail(f"planted-word check {agree}/{tot} below {tot - 1}/{tot}")
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail("TF32 is on: the full-cov and gated products need IEEE "
+                 "float32")
+        adapt = phase_adapt(device, task, workdir)
+    phase_adapt_full_width(device)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -456,6 +731,8 @@ def main() -> int:
          "replaces": GMM_REPLACES, "launches": launches["gmm_state_ll"],
          **gmm},
     ]
+    for k in kernels:       # the main path's count above; [7]'s per path
+        k["launches_phase7"] = {p: n[k["name"]] for p, n in adapt.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

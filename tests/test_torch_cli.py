@@ -15,7 +15,9 @@ from aaltoasr_tpu.formats.lna import read_lna
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.recognize import main as t_recognize
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+from aaltoasr_tpu_torch.ops.gmm import GmmScorer
 
 from tests.test_recognize_cli import _task
 
@@ -139,12 +141,17 @@ def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
     assert not list((tmp_path / "port").rglob("*.lna"))
 
 
-@pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch])
+@pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch,
+                                 FeatureGenerator, GmmScorer.from_model])
 def test_entry_points_default_to_cuda(monkeypatch, cls):
+    """The public constructors default to the GPU and, with none, raise
+    before reading anything."""
     assert inspect.signature(cls).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if cls is PhoneProbs:
             cls("no-model-read-before-the-device-check", "feats.cfg")
-        else:
+        elif cls is DenseBeamSearch:
             cls(None, None, None)
+        else:               # a config path / a model never read
+            cls("no-file-read-before-the-device-check")

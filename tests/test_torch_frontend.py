@@ -84,9 +84,15 @@ def test_op_matches_reference(mtype, items, src_dims, rows):
 
 
 def test_unported_ops_raise():
+    """No module type is left unported: the port builds every type the
+    JAX `build_op` builds, and an unknown type raises as there."""
     _, tcfg = _cfg({})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.build_op("vtln", tcfg, [21], 16000)
+    for mtype in ("fft", "mel", "power", "melpower", "dct", "delta",
+                  "normalization", "lin_transform", "merge",
+                  "mean_subtractor", "concat", "vtln", "quanteq"):
+        assert isinstance(TM.build_op(mtype, tcfg, [21], 16000), TM.Op)
+    srn = _cfg({"in_frames": "3", "out_frames": "3"})[1]
+    assert isinstance(TM.build_op("sr_norm", srn, [21], 16000), TM.SRNormOp)
     with pytest.raises(ValueError):
         TM.build_op("no_such_module", tcfg, [21], 16000)
 
@@ -96,7 +102,7 @@ def test_unported_ops_raise():
 def test_generator_features(cfg_text):
     audio = make_audio(6000, seed=3)
     jg = JGen(JConfig.parse(cfg_text))
-    tg = TGen(TConfig.parse(cfg_text))
+    tg = TGen(TConfig.parse(cfg_text), device="cpu")
     assert tg.dim == jg.dim and tg.need == jg.need
     assert tg.num_frames(6000) == jg.num_frames(6000)
     _close(tg.features(audio), jg.features(audio))
@@ -109,7 +115,8 @@ def test_generator_features_batch():
     lens = np.array([5000, 3500])
     cfg = cfg_mfcc_full()
     want = JGen(JConfig.parse(cfg)).features_batch(np.stack([a, b]), lens)
-    got = TGen(TConfig.parse(cfg)).features_batch(np.stack([a, b]), lens)
+    got = TGen(TConfig.parse(cfg), device="cpu").features_batch(
+        np.stack([a, b]), lens)
     _close(got, want)
 
 
@@ -117,7 +124,7 @@ def test_non_integer_advance():
     cfg = MFCC_CFG.replace("sample_rate 16000",
                            "sample_rate 16000\n  frame_rate 120")
     audio = make_audio(4000, seed=6)
-    _close(TGen(TConfig.parse(cfg)).features(audio),
+    _close(TGen(TConfig.parse(cfg), device="cpu").features(audio),
            JGen(JConfig.parse(cfg)).features(audio))
 
 
@@ -135,7 +142,7 @@ def test_mfcc_core_plain_matches_pallas_interpret(magnitude, root,
     """The K2 kernel's plain version against the Pallas kernel in
     interpret mode (as tests/test_frontend_fused.py runs it)."""
     fg = TGen(TConfig.parse(MFCC_CFG.replace(
-        "sample_rate 16000", f"sample_rate {rate}")))
+        "sample_rate 16000", f"sample_rate {rate}")), device="cpu")
     basis = fg.ops["fft"].basis
     mel_w = fg.ops["mel"].weights
     dct = fg.ops["dct"].matrix
@@ -164,10 +171,10 @@ def test_fused_switch_needs_a_gpu_tensor():
     the unfused ops run (as the reference gates on a TPU backend)."""
     audio = make_audio(4000, seed=8)
     before = mfcc_core.launches
-    fused = TGen(TConfig.parse(MFCC_CFG), fused_mfcc=True)
+    fused = TGen(TConfig.parse(MFCC_CFG), fused_mfcc=True, device="cpu")
     assert fused._fusion == {"fft": "fft", "mel": "mel", "dct": "dct",
                              "power": "power"}
-    plain = TGen(TConfig.parse(MFCC_CFG))
+    plain = TGen(TConfig.parse(MFCC_CFG), device="cpu")
     np.testing.assert_array_equal(fused.features(audio).numpy(),
                                   plain.features(audio).numpy())
     assert mfcc_core.launches == before

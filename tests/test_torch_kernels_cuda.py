@@ -12,16 +12,22 @@ here needs a CUDA device and skips without one; on the GPU host run
 host does not have).  This file imports no jax.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+from aaltoasr_tpu_torch.formats.spkc import SpeakerConfig
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.ops import frontend_cuda, gmm_cuda
-from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+from aaltoasr_tpu_torch.ops.gmm import GmmScorer, quantize_lna_u16
 from aaltoasr_tpu_torch.synth import (
-    MFCC_CFG, mfcc_cfg, probe_frames, random_model, uneven_model)
+    MFCC_CFG, cmllr_transforms, feature_model, mfcc_cfg, nearest_clusters,
+    norm_stats, probe_frames, random_model, speaker_spkc, splice_cfg,
+    uneven_model, vtln_cfg)
+from aaltoasr_tpu_torch.train.mllr import apply_model_cmllr
 
 pytestmark = pytest.mark.cuda
 
@@ -245,3 +251,126 @@ def test_fused_generator_44k_matches_unfused(dev):
     plain = FeatureGenerator(cfg, device=dev).features_batch(samples, lens)
     scale = float(plain.abs().max())
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
+
+
+# -- the adaptation configurations (-S) and the full-cov / gated scorers --
+
+ADAPT = {"splice": (splice_cfg, {}, "lin_transform"),
+         "vtln-sinc": (vtln_cfg, {}, "vtln"),
+         "vtln-allpass": (vtln_cfg, {"all-pass": 1}, "vtln")}
+
+
+@functools.lru_cache(maxsize=None)
+def _norm(name):
+    """Mean and scale of the configuration's features over 2 s of noise,
+    for its closing normalization module (as a `feanorm` file)."""
+    cfg, items, _kind = ADAPT[name]
+    fg = FeatureGenerator(FeatureConfig.parse(cfg(**items)), device="cpu")
+    x = fg.features(np.random.default_rng(6).normal(0, 1000, 32000).astype(
+        np.float32))
+    return norm_stats(x.numpy())
+
+
+def _speaker_generator(name, dev, fused_mfcc=False):
+    """The configuration's generator (features normalized) with speaker
+    "c"'s block applied: a feature transform near the identity, or the
+    warp 1.1 (speakers a, b, c have 0.9, 1.0, 1.1)."""
+    cfg, items, kind = ADAPT[name]
+    text = cfg(norm=_norm(name), **items)
+    fg = FeatureGenerator(FeatureConfig.parse(text), fused_mfcc=fused_mfcc,
+                          device=dev)
+    spkc = SpeakerConfig.parse(speaker_spkc(["a", "b", "c"], kind, dim=39))
+    fg.apply_speaker_config(spkc.speaker_params("c"))
+    return fg
+
+
+@pytest.mark.parametrize("name", list(ADAPT))
+def test_gmm_state_ll_on_adaptation_features(dev, name):
+    """K1 on one 8 s utterance's features of the splice + LDA and VTLN
+    configurations after a speaker switch, against a model placed on
+    those features, matches its plain version."""
+    fg = _speaker_generator(name, dev)
+    rng = np.random.default_rng(7)
+    x = fg.features(rng.normal(0, 1000, 128000).astype(np.float32))
+    x = x.contiguous()
+    fused = _fused(feature_model(random_model(G=900, S=300, D=39, K=8,
+                                              seed=8), x.cpu().numpy(), 0.25),
+                   dev)
+    _check_gmm(fused, x, 300, atol=_loud_atol(fused, x, 300))
+
+
+def test_fused_generator_splice_matches_unfused(dev):
+    """The splice + LDA configuration fuses downstream of the dct: one K2
+    launch per batch, and the spliced, transformed features agree with
+    the unfused ops (rtol 1e-5, atol 1e-4 * max)."""
+    rng = np.random.default_rng(9)
+    samples = rng.normal(0, 1000, (3, 16000)).astype(np.float32)
+    lens = np.array([16000, 12000, 9000])
+    fused_fg = _speaker_generator("splice", dev, fused_mfcc=True)
+    before = frontend_cuda.mfcc_core.launches
+    fused = fused_fg.features_batch(samples, lens)
+    assert frontend_cuda.mfcc_core.launches == before + 1
+    plain = _speaker_generator("splice", dev).features_batch(samples, lens)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("name", ["vtln-sinc", "vtln-allpass"])
+def test_vtln_generator_does_not_launch_mfcc_core(dev, name):
+    """The fft feeds the vtln module, so the MFCC core does not fuse."""
+    fg = _speaker_generator(name, dev, fused_mfcc=True)
+    assert fg._fusion is None
+    before = frontend_cuda.mfcc_core.launches
+    x = fg.features(np.random.default_rng(10).normal(
+        0, 1000, 16000).astype(np.float32))
+    assert frontend_cuda.mfcc_core.launches == before
+    assert bool(torch.isfinite(x).all())
+
+
+def _scorer_features():
+    return np.random.default_rng(13).normal(0, 2, (1006, 39)).astype(
+        np.float32)
+
+
+def _scorer_pair(kind, dev):
+    """(cuda, cpu) scorers of one model placed on the features (as in
+    chip_smoke.py; peaked posteriors): "full" from model-space
+    CMLLR with 4 classes, "gated" with 32 nearest-center clusters and
+    eval_ming 0.1."""
+    rng = np.random.default_rng(11)
+    model = feature_model(random_model(G=600, S=200, D=39, K=4, seed=12),
+                          _scorer_features(), 0.25)
+    if kind == "full":
+        model = apply_model_cmllr(model, cmllr_transforms(39, 4, rng),
+                                  rng.integers(0, 4, 600))
+    pair = [GmmScorer.from_model(model, device=d) for d in (dev, "cpu")]
+    if kind == "gated":
+        assign = nearest_clusters(model.means, 32)
+        pair = [s.with_clustering(model, assign, 32, 0.0, 0.1) for s in pair]
+    return pair
+
+
+@pytest.mark.parametrize("kind", ["full", "gated"])
+def test_scorer_on_cuda_matches_cpu(dev, kind):
+    """The full-covariance and gated scorers (torch.matmul in IEEE
+    float32, TF32 off) on the GPU against the CPU.  Full-cov sums 1,560
+    terms of phi(x) that cancel down to the score, in another order on
+    each side: atol 1e-5 * max|ll|, at least 1e-3.  The gate ranks
+    clusters by float32 scores, so a near tie may select another
+    cluster on one side: >= 99.9% of the scores within that tolerance.
+    LNA codes within one step, >= 99% identical."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cuda, cpu = _scorer_pair(kind, dev)
+    x = _scorer_features()
+    got = cuda.state_log_likelihoods(torch.tensor(x, device=dev))[:, :200]
+    want = cpu.state_log_likelihoods(torch.tensor(x))[:, :200]
+    atol = max(1e-3, 1e-5 * float(want.abs().max()))
+    close = (got.cpu() - want).abs() <= atol
+    if kind == "full":
+        assert bool(close.all())
+    else:
+        assert float(close.float().mean()) >= 0.999
+    codes = [quantize_lna_u16(s.lna_log_probs(torch.tensor(x, device=d)))
+             .cpu().long() for s, d in ((cuda, dev), (cpu, "cpu"))]
+    diff = (codes[0] - codes[1]).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.99

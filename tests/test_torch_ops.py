@@ -78,7 +78,7 @@ class TestGmmScoring:
         model = random_model(G=60, S=21, D=D, K=5, seed=D)
         x = _feats(33, D, seed=3)
         want = _np(JGmm.from_model(model).state_log_likelihoods(x))
-        got = TGmm.from_model(convert.hmm_model(model)
+        got = TGmm.from_model(convert.hmm_model(model), device="cpu"
                               ).state_log_likelihoods(torch.tensor(x))
         assert got.shape == want.shape
         np.testing.assert_allclose(got.numpy()[:, :21], want[:, :21],
@@ -87,7 +87,7 @@ class TestGmmScoring:
     def test_tables_equal_reference(self):
         model = random_model(G=50, S=13, D=7, K=4, seed=4)
         j = JGmm.from_model(model)
-        t = TGmm.from_model(convert.hmm_model(model))
+        t = TGmm.from_model(convert.hmm_model(model), device="cpu")
         c = convert.gmm_scorer(j)          # the reference's tables, carried
         for name in ("score_matrix", "score_bias", "comp_idx", "comp_logw"):
             np.testing.assert_array_equal(getattr(t, name).numpy(),
@@ -99,7 +99,7 @@ class TestGmmScoring:
         model = random_model(G=80, S=40, D=39, K=6, seed=5)
         x = _feats(200, 39, seed=6)
         want = _np(j_quantize(JGmm.from_model(model).lna_log_probs(x)))
-        got = t_quantize(TGmm.from_model(convert.hmm_model(model))
+        got = t_quantize(TGmm.from_model(convert.hmm_model(model), device="cpu")
                          .lna_log_probs(torch.tensor(x))).numpy()
         diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
         assert diff.max() <= 1
@@ -112,11 +112,17 @@ class TestGmmScoring:
                                       _np(j_quantize(lp)).astype(np.int64))
 
     def test_unported_models_raise(self):
+        """Nothing is left unported: a full-covariance model builds and
+        scores as the reference does (atol 1e-4 at D=7)."""
         model = random_model(D=7)
-        model = convert.hmm_model(model)
         model.cov_type = "full_cov"
-        with pytest.raises(NotImplementedError):
-            TGmm.from_model(model)
+        x = _feats(9, 7, seed=13)
+        want = _np(JGmm.from_model(model).state_log_likelihoods(x))
+        got = TGmm.from_model(convert.hmm_model(model), device="cpu")
+        assert got.full_cov
+        np.testing.assert_allclose(
+            got.state_log_likelihoods(torch.tensor(x)).numpy()[:, :11],
+            want[:, :11], rtol=0, atol=1e-4)
 
 
 class TestFusedGmmPlain:
@@ -127,7 +133,8 @@ class TestFusedGmmPlain:
     def test_matches_pallas_interpret(self, D, K, atol):
         model = random_model(G=70, S=19, D=D, K=K, seed=7)
         jf = JFused.from_scorer(JGmm.from_model(model))
-        tf = TFused.from_scorer(TGmm.from_model(convert.hmm_model(model)))
+        tf = TFused.from_scorer(TGmm.from_model(convert.hmm_model(model),
+                                                device="cpu"))
         np.testing.assert_array_equal(tf.we.numpy(), _np(jf.we))
         np.testing.assert_array_equal(convert.fused_gmm_scorer(jf).we.numpy(),
                                       tf.we.numpy())
@@ -142,7 +149,7 @@ class TestFusedGmmPlain:
 
     def test_fused_lna_matches_plain_scorer(self):
         model = convert.hmm_model(random_model(G=50, S=12, D=7, seed=9))
-        sc = TGmm.from_model(model)
+        sc = TGmm.from_model(model, device="cpu")
         x = torch.tensor(_feats(20, 7, seed=10))
         np.testing.assert_allclose(
             TFused.from_scorer(sc).lna_log_probs(x).numpy(),
@@ -150,7 +157,7 @@ class TestFusedGmmPlain:
 
     def test_cpu_wrapper_is_the_plain_version(self):
         model = convert.hmm_model(random_model(G=30, S=9, D=7, seed=11))
-        tf = TFused.from_scorer(TGmm.from_model(model))
+        tf = TFused.from_scorer(TGmm.from_model(model, device="cpu"))
         x = torch.tensor(_feats(12, 7, seed=12))
         before = gmm_state_ll.launches
         np.testing.assert_array_equal(gmm_state_ll(x, tf.we, 7).numpy(),
