@@ -2,13 +2,14 @@
 
 Counterpart of `aaltoasr_tpu/cli/recognize.py`, with the same flags and
 rectool's reuse semantics (rectool.py:613-634, 1045-1056): LNA
-generation through the scoring pipeline (skip-if-exists), then batched
-decoding with the dense engine and 1-best output.  It runs on
-``--device`` (default ``cuda``; with no GPU it raises unless ``--device
-cpu`` is given).  The exact engine (and ``--engine
-auto``, which picks it below 100k tree nodes), adaptation, lattices,
-n-best lists, confidences and state segmentations are not ported yet
-and raise NotImplementedError naming the slice that brings them.
+generation through the scoring pipeline (skip-if-exists), then decoding
+through `Toolbox` with 1-best output: the exact engine one utterance at
+a time, or the dense engine in batches; ``--engine auto`` (the default)
+picks exact below 100k tree nodes.  It runs on ``--device`` (default
+``cuda``; with no GPU it raises unless ``--device cpu`` is given).
+Adaptation, lattices, n-best lists, confidences, state segmentations
+and context lookahead are not ported yet and raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -19,14 +20,11 @@ import sys
 
 import numpy as np
 
-from aaltoasr_tpu_torch.decoder.lexicon import build_prefix_tree, read_lexicon
-from aaltoasr_tpu_torch.decoder.ngram import NGramFsa
-from aaltoasr_tpu_torch.decoder.search import SearchConfig
+from aaltoasr_tpu_torch.decoder.search import EXACT_REST_ITEM, LATTICE_ITEM
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.device import resolve_device
-from aaltoasr_tpu_torch.formats.arpa import read_arpa
 from aaltoasr_tpu_torch.formats.lna import read_lna
-from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_dur, read_ph
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 
@@ -34,34 +32,17 @@ from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 AUTO_ENGINE_NODE_THRESHOLD = 100_000
 
 _LATER = {
-    "exact": "the exact engine is not ported yet (ROADMAP queue 1, "
-             "slice 2: exact engine and streaming)",
-    "adapt": "adaptation is not ported yet (ROADMAP queue 1, slice 4)",
+    "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
+             "adaptation)",
     "lattice": "lattices, n-best lists and confidences are not ported "
-               "yet (ROADMAP queue 1: lattices and wordgraph)",
-    "stateseg": "state segmentation is not ported yet (ROADMAP queue 1, "
-                "slice 2: Toolbox and stateseg)",
+               f"yet ({LATTICE_ITEM})",
+    "stateseg": f"state segmentation is not ported yet ({EXACT_REST_ITEM})",
 }
 
 
 def select_engine(n_nodes: int) -> str:
     """Scale-based engine choice for --engine auto."""
     return "dense" if n_nodes >= AUTO_ENGINE_NODE_THRESHOLD else "exact"
-
-
-def decoder_model(ph_path: str, dur_path: str = "") -> HmmModel:
-    """Topology + durations only: acoustics arrive as LNA log-probs
-    (the reference Toolbox's model)."""
-    phones, transitions = read_ph(ph_path)
-    num_states = 1 + max((s for p in phones for s in p.states), default=0)
-    model = HmmModel(
-        dim=0, cov_type="diagonal_cov",
-        means=np.zeros((0, 1)), covars=np.zeros((0, 1)),
-        mixtures=[(np.zeros(0, np.int32), np.zeros(0))] * num_states,
-        phones=phones, transitions=transitions)
-    if dur_path:
-        model.durations = read_dur(dur_path)
-    return model
 
 
 def is_morph_lm(path: str) -> bool:
@@ -104,13 +85,16 @@ def main(argv=None) -> int:
                    default="", help="per-speaker adaptation (not ported)")
     p.add_argument("--engine", choices=["auto", "exact", "dense"],
                    default="auto",
-                   help="decoder engine; only the dense batched engine "
-                        "is ported, auto picks exact below "
-                        f"{AUTO_ENGINE_NODE_THRESHOLD} tree nodes")
+                   help="decoder engine: exact token passing, the dense "
+                        "batched mode (node-level Viterbi recombination), "
+                        "or auto (exact below "
+                        f"{AUTO_ENGINE_NODE_THRESHOLD} tree nodes, dense "
+                        "above)")
     p.add_argument("--decode-batch", type=int, default=32,
                    help="utterances decoded together (dense engine)")
     p.add_argument("--overflow-tokens", type=int, default=0,
-                   help="exact engine only")
+                   help="exact engine: branch-expansion budget (0 = "
+                        "every arc of every token)")
     p.add_argument("--lattices", action="store_true",
                    help="write SLF word graphs (not ported)")
     p.add_argument("--nbest", type=int, default=0,
@@ -120,17 +104,22 @@ def main(argv=None) -> int:
     p.add_argument("--confidence", action="store_true",
                    help="print confidences (not ported)")
     p.add_argument("--we-prewalk", type=int, default=0,
-                   help="exact engine only")
+                   help="exact engine: LM-walk only the top-N word ends "
+                        "ranked by a static unigram estimate (0 = all)")
     p.add_argument("--word-end-beam", type=float, default=0.0,
-                   help="exact engine only")
+                   help="prune word ends vs the frame's best word end "
+                        "(Toolbox.hh:205); 0 = off")
     p.add_argument("--reentry-records", type=int, default=0,
-                   help="exact engine only")
+                   help="exact engine: only the top-N record slots "
+                        "re-enter (all are written); 0 = all")
     p.add_argument("--reentry-prewalk", type=int, default=0,
-                   help="exact engine only")
+                   help="exact engine: each re-entering record keeps its "
+                        "top-N cross-word entry nodes; 0 = all")
     p.add_argument("--lookahead", type=int, default=0,
-                   help="LM lookahead (exact engine only)")
+                   help="LM lookahead: 0 off, 1 unigram table, 2 bigram "
+                        "table (3, context lookahead, is not ported)")
     p.add_argument("--lookahead-ngram", default=None,
-                   help="separate ARPA for lookahead (exact engine only)")
+                   help="separate (smaller) ARPA for lookahead scores")
     p.add_argument("--split-multiwords", action="store_true",
                    help="score multiwords (give_me) as component-word "
                         "sequences in the LM (Toolbox.hh:223-232)")
@@ -155,12 +144,49 @@ def main(argv=None) -> int:
         raise NotImplementedError(_LATER["lattice"])
     if args.stateseg:
         raise NotImplementedError(_LATER["stateseg"])
-    if args.engine == "exact":
-        raise NotImplementedError(_LATER["exact"])
 
     device = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
+
+    # -- the decoder first, so that an unported knob raises before any
+    # LNA is written
+    t = Toolbox(args.am + ".ph", args.dur, device=device)
+    # morph LM (rectool.py:529-530, 563-564): silences become words and
+    # the short silence commits '<w>'
+    morph_lm = is_morph_lm(args.lm)
+    if morph_lm:
+        if args.info > 0:
+            print("Morph-based language model", file=sys.stderr)
+        t.set_silence_is_word(True)
+        t.set_word_boundary("<w>")
+    # the reference's trees default the optional short silence on
+    # (TPLexPrefixTree.cc:54), and rectool always requires the sentence
+    # end (rectool.py:537)
+    t.set_optional_short_silence(not args.no_oss)
+    t.set_require_sentence_end(not args.no_require_end)
+    t.lex_read(args.lexicon)
+    t.ngram_read(args.lm)
+    t.set_global_beam(args.beam)
+    t.set_token_limit(args.tokens)
+    t.set_lm_scale(args.lm_scale)
+    t.set_duration_scale(args.duration_scale)
+    t.set_insertion_penalty(args.insertion_penalty)
+    t.set_overflow_tokens(args.overflow_tokens)
+    t.set_split_multiwords(args.split_multiwords)
+    t.set_we_prewalk(args.we_prewalk)
+    t.set_word_end_beam(args.word_end_beam)
+    t.set_reentry_records(args.reentry_records)
+    t.set_reentry_prewalk(args.reentry_prewalk)
+    t.set_lm_lookahead(args.lookahead)
+    if args.lookahead_ngram:
+        t.read_lookahead_ngram(args.lookahead_ngram)
+    engine = args.engine
+    if engine == "auto":
+        engine = select_engine(t.tree.num_nodes)
+        if args.info >= 0:
+            print(f"engine auto: {t.tree.num_nodes} tree nodes -> {engine}",
+                  file=sys.stderr)
 
     # -- LNA generation (skip-if-exists, rectool.py:613-634)
     lna_dir = os.path.join(args.workdir, "lna")
@@ -179,38 +205,28 @@ def main(argv=None) -> int:
             print(f"LNA: {rinfo.audio_path}", file=sys.stderr)
         pp.generate_to_file(rinfo.audio_path, path)
 
-    # -- decoding
-    model = decoder_model(args.am + ".ph", args.dur)
-    cfg = SearchConfig(beam=args.beam, num_tokens=args.tokens,
-                       lm_scale=args.lm_scale,
-                       duration_scale=args.duration_scale,
-                       insertion_penalty=args.insertion_penalty,
-                       split_multiwords=args.split_multiwords,
-                       require_sentence_end=not args.no_require_end)
-    # morph LM (rectool.py:529-530, 563-564): silences become words and
-    # the short silence commits '<w>'
-    morph_lm = is_morph_lm(args.lm)
-    if morph_lm:
-        if args.info > 0:
-            print("Morph-based language model", file=sys.stderr)
-        cfg.word_boundary = "<w>"
-    tree = build_prefix_tree(
-        model, read_lexicon(args.lexicon), silence_is_word=True,
-        optional_short_silence=not args.no_oss,
-        word_boundary=cfg.word_boundary)
-    lm = NGramFsa.from_arpa(read_arpa(args.lm))
+    def emit(rinfo, lna_path, res):
+        key = rinfo.utterance_id or os.path.basename(lna_path)
+        text = " ".join(res.words)
+        if morph_lm:
+            # rectool.py:1025-1037: morphs concatenate; boundaries and
+            # sentence breaks become spaces
+            text = text.replace(" ", "")
+            text = text.replace("<w></s><s><w>", " ")
+            text = text.replace("<w>", " ")
+            text = text.replace("<s>", "").replace("</s>", "")
+            text = " ".join(text.split())
+        print(f"{text} ({key})")
 
-    if args.engine == "auto":
-        engine = select_engine(tree.num_nodes)
-        if args.info >= 0:
-            print(f"engine auto: {tree.num_nodes} tree nodes -> {engine}",
-                  file=sys.stderr)
-        if engine == "exact":
-            raise NotImplementedError(
-                _LATER["exact"] + "; pass --engine dense")
-
-    search = DenseBeamSearch(tree, lm, model, cfg, device=device)
     items = list(zip(recipe, lna_paths))
+    if engine == "exact":
+        for rinfo, path in items:
+            emit(rinfo, path, t.lna_decode(path, lattice=False))
+        return 0
+
+    # the dense engine: utterances padded to a shared frame count and
+    # decoded together
+    search = DenseBeamSearch(t.tree, t.lm, t.model, t.config, device=device)
     for lo in range(0, len(items), args.decode_batch):
         group = items[lo:lo + args.decode_batch]
         obs_list = [read_lna(path)[0] for _, path in group]
@@ -222,17 +238,7 @@ def main(argv=None) -> int:
             obs[i, :o.shape[0]] = o
             n[i] = o.shape[0]
         for (rinfo, path), res in zip(group, search.decode_batch(obs, n)):
-            key = rinfo.utterance_id or os.path.basename(path)
-            text = " ".join(res.words)
-            if morph_lm:
-                # rectool.py:1025-1037: morphs concatenate; boundaries
-                # and sentence breaks become spaces
-                text = text.replace(" ", "")
-                text = text.replace("<w></s><s><w>", " ")
-                text = text.replace("<w>", " ")
-                text = text.replace("<s>", "").replace("</s>", "")
-                text = " ".join(text.split())
-            print(f"{text} ({key})")
+            emit(rinfo, path, res)
     return 0
 
 

@@ -51,7 +51,7 @@ def ngram_fsa(ref) -> NGramFsa:
 
 
 def search_config(ref) -> SearchConfig:
-    """The dense engine's knobs of a reference `SearchConfig`."""
+    """A reference `SearchConfig`'s knobs (every field the port has)."""
     return _copy_fields(SearchConfig, ref)
 
 

@@ -34,8 +34,9 @@ from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
 from aaltoasr_tpu_torch.decoder.ngram import NGramFsa, lm_walk_device
 from aaltoasr_tpu_torch.decoder.search import (
-    DecodeResult, SearchConfig, expand_word_boundaries,
-    multiword_components, walk_components)
+    EXACT_REST_ITEM, LATTICE_ITEM, DecodeResult, SearchConfig,
+    expand_word_boundaries, multiword_components, top_k, traceback,
+    walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
 
@@ -82,12 +83,6 @@ def _shift_structure(tree: PrefixTree):
     return shifts, grp_src, grp_lp, inv
 
 
-def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest values along the last axis, ties broken
-    by lower index (the order `jax.lax.top_k` gives)."""
-    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
 def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
     """x[:, n - k] along the node axis, `fill` for n < k."""
     pad = torch.full((x.shape[0], k), fill, dtype=x.dtype, device=x.device)
@@ -107,8 +102,8 @@ class DenseBeamSearch:
         self.device = resolve_device(device)
         if not isinstance(lm, NGramFsa):
             raise NotImplementedError(
-                "interpolated LMs are not ported yet (ROADMAP queue 1, "
-                "slice 2)")
+                "interpolated LMs are not ported yet "
+                f"({EXACT_REST_ITEM})")
         if config.num_records < REENTRY_WIDTH:
             raise ValueError(f"num_records must be >= {REENTRY_WIDTH}")
         self.tree = tree
@@ -153,7 +148,7 @@ class DenseBeamSearch:
             we_n = np.concatenate([we_n, np.zeros(pad, dtype=we_n.dtype)])
             we_h = np.concatenate([we_h, np.zeros(pad, dtype=we_h.dtype)])
         n_real = len(we_n) - max(pad, 0)
-        mw_comp, lm_ids = multiword_components(
+        mw_comp, lm_ids, _, _ = multiword_components(
             tree.vocab, lm, config.split_multiwords)
         self._mw_cmax = mw_comp.shape[1]
         we_word = tree.we_word[we_n, we_h]
@@ -322,7 +317,7 @@ class DenseBeamSearch:
             tot_wn + t["ts_exit"] + we_durb + a_lm * (t["we_pron"] + appr_lm),
             NEG_INF)
         k = min(E, Nw)
-        cand = _top_k(rank0, k)                           # [B, k]
+        cand = top_k(rank0, k)                            # [B, k]
         c_ok = slot_ok.gather(1, cand)
         if k < E:
             zpad = torch.zeros((B, E - k), dtype=cand.dtype, device=dvc)
@@ -360,7 +355,7 @@ class DenseBeamSearch:
         e_rec = torch.where(is_word, slot_ptr, c_prev)
 
         # ---- 3. re-entry: the top C through their context-pair rows
-        top_c = _top_k(c_total, C)                        # [B, C]
+        top_c = top_k(c_total, C)                         # [B, C]
         r_lms = c_lms.gather(1, top_c)
         r_lm = lm_next.gather(1, top_c)
         r_rec = e_rec.gather(1, top_c)
@@ -547,8 +542,7 @@ class DenseBeamSearch:
         """[B, T, S] state log-probs + [B] frame counts -> B results."""
         if lattice:
             raise NotImplementedError(
-                "lattice output is not ported yet (ROADMAP queue 1: "
-                "lattices and wordgraph)")
+                f"lattice output is not ported yet ({LATTICE_ITEM})")
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
         n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,
                             device=self.device)
@@ -556,20 +550,16 @@ class DenseBeamSearch:
         finals, recs = self._decode(obs, n, lm_init)
         finals = [f.cpu().numpy() for f in finals]
         recs = recs.cpu().numpy()
-        T = obs.shape[1]
-        wmax = min(self._traceback_cap, T)
+        wmax = min(self._traceback_cap, obs.shape[1])
         out = []
         for b in range(obs.shape[0]):
-            flat_w = recs[0, b].reshape(-1)
-            flat_p = recs[1, b].reshape(-1)
-            ids = [int(finals[4][b])] if finals[4][b] >= 0 else []
-            ptr = int(finals[0][b])
-            while ptr >= 0 and len(ids) < wmax:
-                ids.append(int(flat_w[ptr]))
-                ptr = int(flat_p[ptr])
-            words = [self.tree.vocab[i] for i in reversed(ids) if i >= 0]
+            ids = traceback(recs[0, b], recs[1, b], int(finals[0][b]),
+                            int(finals[4][b]), wmax)
             out.append(DecodeResult(
-                words=expand_word_boundaries(words, self.config),
+                search=self, final_ptr=int(finals[0][b]),
                 log_prob=float(finals[1][b]), final_am=float(finals[2][b]),
-                final_lms=float(finals[3][b])))
+                final_lms=float(finals[3][b]), rec_words=None,
+                rec_prevs=None, rec_ams=None, rec_lmss=None,
+                words=expand_word_boundaries(
+                    [self.tree.vocab[i] for i in ids], self.config)))
         return out

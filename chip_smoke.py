@@ -35,7 +35,18 @@ Phases, each printing a summary line:
    full-covariance scorer (model CMLLR, 4 classes), the gated scorer
    (256 clusters, eval_ming 0.1), one model-CMLLR speaker switch, and
    the fused scoring batch of the MFCC and the splice + LDA
-   configurations, timed.
+   configurations, timed;
+8. the exact engine (`BeamSearch`, no kernel of its own): at the bench's
+   cross-word point (`exact_crossword_trigram_xrt`: W=512, E=32, overflow
+   128, prewalk 256, re-entry 8 + 8; B=128, T=1,000 planted
+   observations), planted-word agreement on the first 4 utterances, the
+   real-time factor and, from torch.profiler over 20 frames, kernel
+   launches a frame and the device-busy share; the card against the CPU
+   on 2 utterances (words, records and pointers identical); at the
+   default knobs (W=1,024, E=128) on 4 utterances, planted words checked;
+   then `recognize` at its default engine (exact on this task) on 2 of
+   the planted utterances written as LNAs, planted words checked, and on
+   the first of them on the CPU, whose line must be identical.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -341,7 +352,8 @@ def _read_codes(path) -> np.ndarray:
 
 def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     """LNAs through both kernels, then `recognize --engine dense`.
-    Returns the kernels' launch counts from this run."""
+    Returns the kernels' launch counts from this run and recognize's
+    arguments for the task (no engine, no device)."""
     from aaltoasr_tpu_torch.cli import recognize
     from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
     from aaltoasr_tpu_torch.formats.recipe import Recipe
@@ -354,10 +366,10 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     cfg = FeatureConfig.load(paths["cfg"])
     recipe = Recipe.read(paths["recipe"])
     pp = PhoneProbs(paths["am"], cfg, lna_bytes=2, fused=True, device=device)
-    argv = ["-b", paths["am"], "-c", paths["cfg"], "-l", paths["lexicon"],
-            "-n", paths["lm"], "-r", paths["recipe"], "-w", workdir,
-            "--dur", paths["am"] + ".dur", "--engine", "dense",
-            "--device", device.type]
+    task_argv = ["-b", paths["am"], "-c", paths["cfg"], "-l",
+                 paths["lexicon"], "-n", paths["lm"], "-r", paths["recipe"],
+                 "-w", workdir, "--dur", paths["am"] + ".dur"]
+    argv = task_argv + ["--engine", "dense", "--device", device.type]
 
     mfcc_core.launches = 0
     gmm_state_ll.launches = 0
@@ -408,7 +420,17 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     if steps > 1 or same < 0.99 * total:
         fail("LNA codes of the kernel path are not within one step of the "
              "plain path's")
-    return launches
+    return launches, task_argv
+
+
+def _planted(results, true_words, n=4) -> tuple[int, int]:
+    """(words in place, planted words) over the first n utterances."""
+    agree = tot = 0
+    for b in range(min(n, len(results))):
+        ref = [f"w{i}" for i in true_words[b]]
+        agree += sum(h == r for h, r in zip(results[b].words, ref))
+        tot += len(ref)
+    return agree, tot
 
 
 def phase_decode(device, task, B=128, T=1000, card=""):
@@ -424,11 +446,7 @@ def phase_decode(device, task, B=128, T=1000, card=""):
     obs = planted_obs(plan, task.model.num_states, g, device=device)
     n = np.full(B, T)
     res = search.decode_batch(obs, n)                     # warm
-    agree = tot = 0
-    for b in range(min(4, B)):
-        ref = [f"w{i}" for i in true_words[b]]
-        agree += sum(h == r for h, r in zip(res[b].words, ref))
-        tot += len(ref)
+    agree, tot = _planted(res, true_words)
     best = float("inf")
     for _ in range(3):
         sync(device)
@@ -689,6 +707,178 @@ def phase_adapt_full_width(device, n_utts=32, seconds=10.0, G=10000,
     return res
 
 
+def _profile_steps(search, obs, device, frames=20, warm=5) -> str:
+    """Kernel launches a frame and the device-busy share over `frames`
+    steps of the exact engine (after `warm` steps), from torch.profiler's
+    device events: launches count the kernels (copies and fills apart),
+    busy = every event's summed time over the span from the first one's
+    start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+    tok = search._seed_tokens(obs[:, 0], int(search.lm.initial_state()))
+    for i in range(warm):
+        tok, _ = search._step(tok, obs[:, i + 1], i)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(warm, warm + frames):
+            tok, _ = search._step(tok, obs[:, i + 1], i)
+        sync(device)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return "device events: not measured (the profiler saw none)"
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"{(len(dev) - copies) / frames:.1f} kernel launches and "
+            f"{copies / frames:.1f} copies or fills a frame, device busy "
+            f"{100.0 * busy / span:.1f}% of {span / frames / 1e3:.3f} ms a "
+            f"frame, {busy / frames / 1e3:.3f} ms of device time a frame "
+            f"(profiler, {frames} frames); most device time: "
+            + "; ".join(f"{100.0 * v / busy:.1f}% {k[:60]}" for k, v in top))
+
+
+def _recognize(argv, device) -> tuple[list, str, float]:
+    """`cli.recognize` on `argv`: (its result lines, its stderr, wall s);
+    fails unless it returns 0 through the exact engine."""
+    from aaltoasr_tpu_torch.cli import recognize
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = recognize.main(argv)
+    sync(device)
+    wall = time.perf_counter() - t0
+    if rc not in (0, None) or "-> exact" not in err.getvalue():
+        fail(f"recognize {' '.join(argv)} returned {rc} without the exact "
+             "engine")
+    lines = [ln for ln in out.getvalue().splitlines() if ln.endswith(")")]
+    return lines, err.getvalue().strip(), wall
+
+
+def phase_exact(device, task, recognize_argv, card="", B=128, T=1000,
+                B_default=4, n_cmp=2):
+    """[8] The exact engine: (a) at the bench's cross-word point
+    (`exact_crossword_trigram_xrt`: W=512, E=32, overflow 128, prewalk
+    256, re-entry 8 + 8) on B planted utterances of T frames, the card
+    against the CPU on the first n_cmp; (b) at the default knobs
+    (W=1024, E=128) on the first B_default of them; (c) `recognize` at
+    its default engine on the first n_cmp written as LNAs, on the card,
+    and on the first one on the CPU."""
+    from aaltoasr_tpu_torch.decoder.search import BeamSearch, SearchConfig
+    from aaltoasr_tpu_torch.formats.lna import write_lna
+    from aaltoasr_tpu_torch.synth import planted_obs, synth_obs
+    plan, true_words = synth_obs(task.model, task.info, B, T)
+    g = torch.Generator(device=device).manual_seed(1)
+    obs = planted_obs(plan, task.model.num_states, g, device=device)
+    n = np.full(B, T)
+    cfg = SearchConfig(lm_scale=30.0, duration_scale=3.0, num_tokens=512,
+                       num_records=32, overflow_tokens=128, we_prewalk=256,
+                       reentry_records=8, reentry_prewalk=8)
+    search = BeamSearch(task.tree, task.fsa, task.model, cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res = search.decode_batch(obs, n, lattice=False)          # warm
+    agree, tot = _planted(res, true_words)
+    best = float("inf")
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        search.decode_batch(obs, n, lattice=False)
+        sync(device)
+        best = min(best, time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else float("nan"))
+    print(f"[8] exact decode, bench cross-word point (W=512, E=32, overflow "
+          f"128, prewalk 256, re-entry 8 + 8), B={B} T={T}: planted words "
+          f"{agree}/{tot}; best of 3 {best:.3f} s = "
+          f"{B * T / 125.0 / best:.1f}x real time, {(T - 1) / best:.1f} "
+          f"frames/s ({B * (T - 1) / best:.0f} utterance-frames/s), peak "
+          f"{peak:.2f} GiB on {card}", flush=True)
+    print("[8] exact step at that point: "
+          f"{_profile_steps(search, obs, device)}", flush=True)
+    if agree < tot - 1:
+        fail(f"exact planted-word check {agree}/{tot} below {tot - 1}/{tot}")
+    # the card against the CPU, records included
+    cmp = (obs[:n_cmp], n[:n_cmp])
+    card_res = search.decode_batch(*cmp)
+    cpu_res = BeamSearch(task.tree, task.fsa, task.model, cfg,
+                         device="cpu").decode_batch(cmp[0].cpu(), cmp[1])
+    for c, h in zip(card_res, cpu_res):
+        same = (c.words == h.words and c.final_word == h.final_word
+                and np.array_equal(c.rec_words, h.rec_words)
+                and np.array_equal(c.rec_prevs, h.rec_prevs))
+        close = all(np.allclose(a, b, rtol=1e-5, atol=1e-3) for a, b in (
+            (c.log_prob, h.log_prob), (c.rec_ams, h.rec_ams),
+            (c.rec_lmss, h.rec_lmss)))
+        if not (same and close):
+            fail("exact decode on the card differs from the CPU's")
+    print(f"[8] exact decode, card against CPU on {n_cmp} utterances: words, "
+          f"record words and pointers identical, scores within rtol 1e-5 "
+          f"atol 1e-3 (log-probs {card_res[0].log_prob:.4f} / "
+          f"{cpu_res[0].log_prob:.4f}, ...)", flush=True)
+
+    search = BeamSearch(task.tree, task.fsa, task.model,
+                        SearchConfig(lm_scale=30.0, duration_scale=3.0),
+                        device=device)
+    sub, nd = obs[:B_default], n[:B_default]
+    sync(device)
+    t0 = time.perf_counter()
+    res = search.decode_batch(sub, nd, lattice=False)
+    sync(device)
+    wall = time.perf_counter() - t0
+    agree_d, tot_d = _planted(res, true_words)
+    print(f"[8] exact decode, default knobs (W=1024, E=128), B={B_default} "
+          f"T={T}, one run: planted words {agree_d}/{tot_d}; {wall:.3f} s = "
+          f"{B_default * T / 125.0 / wall:.1f}x real time, "
+          f"{1e3 * wall / (T - 1):.3f} ms a frame", flush=True)
+    if agree_d < tot_d - 1:
+        fail(f"exact planted-word check at the default knobs {agree_d}/"
+             f"{tot_d} below {tot_d - 1}/{tot_d}")
+
+    # recognize on planted utterances written as LNAs (the frame's
+    # log-softmax: a per-frame shift, so the same best path)
+    argv = list(recognize_argv)
+    pdir = os.path.join(argv[argv.index("-w") + 1], "planted")
+    os.makedirs(os.path.join(pdir, "lna"))
+    for u in range(n_cmp):
+        write_lna(os.path.join(pdir, "lna", f"p{u}.lna"), torch.log_softmax(
+            obs[u, :n[u]], -1).cpu().numpy(), 2)
+    argv[argv.index("-w") + 1] = pdir
+    lines = {}
+    for side, dev, count in (("card", device.type, n_cmp), ("cpu", "cpu", 1)):
+        argv[argv.index("-r") + 1] = recipe = os.path.join(
+            pdir, f"{side}.recipe")
+        with open(recipe, "w") as f:
+            f.write("".join(f"audio={pdir}/p{u}.wav lna=p{u}.lna "
+                            f"utterance=p{u}\n" for u in range(count)))
+        lines[side], engine, wall = _recognize(argv + ["--device", dev],
+                                               device)
+        print(f"[8] recognize ({engine}) --device {dev}: "
+              f"{len(lines[side])} planted utterances in {wall:.3f} s",
+              flush=True)
+    for ln in lines["card"]:
+        print(f"[8]   {ln}", flush=True)
+    words = [ln.rsplit(" (", 1)[0].split() for ln in lines["card"]]
+    agree_r = sum(h == f"w{r}" for b in range(n_cmp)
+                  for h, r in zip(words[b], true_words[b]))
+    tot_r = sum(len(true_words[b]) for b in range(n_cmp))
+    same = lines["cpu"] == lines["card"][:1]
+    print(f"[8] recognize: planted words {agree_r}/{tot_r}; the first "
+          f"utterance's line, card against CPU: "
+          f"{'identical' if same else 'DIFFERENT'}", flush=True)
+    if agree_r < tot_r - 1:
+        fail(f"recognize planted-word check {agree_r}/{tot_r} below "
+             f"{tot_r - 1}/{tot_r}")
+    if len(lines["card"]) != n_cmp or not same:
+        fail(f"recognize lines, card against CPU: {lines}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -713,7 +903,7 @@ def main() -> int:
           f"states, {task.model.num_states} tied states", flush=True)
     gmm = phase_gmm(device, task)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main_path(device, task, workdir)
+        launches, recognize_argv = phase_main_path(device, task, workdir)
         agree, tot = phase_decode(device, task, card=card)
         if agree < tot - 1:
             fail(f"planted-word check {agree}/{tot} below {tot - 1}/{tot}")
@@ -721,6 +911,7 @@ def main() -> int:
             fail("TF32 is on: the full-cov and gated products need IEEE "
                  "float32")
         adapt = phase_adapt(device, task, workdir)
+        phase_exact(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
 
     kernels = [

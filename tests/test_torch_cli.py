@@ -1,6 +1,7 @@
-"""PyTorch port, CLIs: `phone_probs` then `recognize --engine dense` on
-the recognize-CLI test task, against the JAX package's CLIs (CPU; the
-port's CLIs get ``--device cpu``, since they default to the GPU)."""
+"""PyTorch port, CLIs: `phone_probs`, `recognize` (both engines) and
+`decode` on the recognize-CLI test task, against the JAX package's CLIs
+(CPU; the port's CLIs get ``--device cpu``, since they default to the
+GPU)."""
 
 import inspect
 
@@ -8,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from aaltoasr_tpu.cli.decode import main as j_decode
 from aaltoasr_tpu.cli.phone_probs import main as j_phone_probs
 from aaltoasr_tpu.cli.recognize import main as j_recognize
 from aaltoasr_tpu.formats.lna import read_lna
 
+from aaltoasr_tpu_torch.cli.decode import main as t_decode
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.recognize import main as t_recognize
+from aaltoasr_tpu_torch.decoder.search import BeamSearch
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
@@ -108,11 +113,78 @@ def test_morph_lm(tmp_path, capsys):
     got = _lines(capsys, t_recognize,
                  _port_args(tmp_path, recipe, "port") + dense)
     assert len(ref) == 3 and got == ref
+    # and at the default engine (exact on this task)
+    ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref"))
+    got = _lines(capsys, t_recognize, _port_args(tmp_path, recipe, "port"))
+    assert len(ref) == 3 and got == ref
+
+
+def test_recognize_defaults_match_reference(tmp_path, capsys):
+    """No --engine flag: auto picks the exact engine on this task, with
+    every knob at its default (W=1024, E=128)."""
+    recipe = _task(tmp_path)
+    ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref"))
+    assert t_recognize(_port_args(tmp_path, recipe, "port")) == 0
+    cap = capsys.readouterr()
+    got = [ln for ln in cap.out.splitlines() if ln.endswith(")")]
+    assert len(ref) == 3 and got == ref
+    assert "-> exact" in cap.err
+
+
+# the bench's exact cross-word operating point (bench.py:150-153)
+BENCH_KNOBS = ["--tokens", "512", "--overflow-tokens", "128",
+               "--we-prewalk", "256", "--reentry-records", "8",
+               "--reentry-prewalk", "8"]
+
+
+@pytest.mark.parametrize("extra", [
+    BENCH_KNOBS, ["--word-end-beam", "40", "--lookahead", "1"],
+    ["--lookahead", "2", "--no-require-end"]])
+def test_recognize_exact_matches_reference(tmp_path, capsys, extra):
+    recipe = _task(tmp_path)
+    exact = ["--engine", "exact"] + extra
+    ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref") + exact)
+    got = _lines(capsys, t_recognize,
+                 _port_args(tmp_path, recipe, "port") + exact)
+    assert len(ref) == 3 and got == ref
+
+
+def test_decode_matches_reference(tmp_path, capsys):
+    """`decode` on LNAs written by the reference's `phone_probs`, with a
+    duration file and unigram lookahead from a separate LM."""
+    from aaltoasr_tpu.formats import model_io
+    from tests.test_train import three_state_model
+    recipe = _task(tmp_path)
+    (tmp_path / "lna").mkdir()
+    assert j_phone_probs(["-b", str(tmp_path / "am"),
+                          "-c", str(tmp_path / "feats.cfg"), "-r", str(recipe),
+                          "-o", str(tmp_path / "lna")]) == 0
+    rng = np.random.default_rng(3)
+    S = three_state_model(seed=5, D=4).num_states
+    model_io.write_dur(str(tmp_path / "am.dur"), np.stack(
+        [rng.uniform(1.5, 3.0, S), rng.uniform(1.0, 2.0, S)], axis=1))
+    lna_recipe = tmp_path / "lna.recipe"
+    lna_recipe.write_text("".join(
+        f"lna={tmp_path / 'lna' / f'u{u}.wav.lna'} utterance=u{u}\n"
+        for u in range(3)))
+    argv = ["-p", str(tmp_path / "am.ph"), "-d", str(tmp_path / "am.dur"),
+            "-l", str(tmp_path / "lex.txt"), "-n", str(tmp_path / "lm.arpa"),
+            "-r", str(lna_recipe), "--lm-scale", "2", "--lookahead", "1",
+            "--lookahead-ngram", str(tmp_path / "lm.arpa")]
+    ref = _lines(capsys, j_decode, argv)
+    got = _lines(capsys, t_decode, argv + ["--device", "cpu"])
+    assert len(ref) == 3 and got == ref
+
+
+def test_decode_lattice_grammar_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 3"):
+        t_decode(["-p", "m.ph", "-l", "lex", "-r", "recipe",
+                  "--lattice-grammar", "g.slf", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine", "exact"], "exact engine"),
-    ([], "exact engine"),                    # auto picks exact here
+    (["--engine", "exact", "--lattices"], "lattices"),
+    (["--lookahead", "3"], "item 4"),        # context lookahead
     (["--engine", "dense", "--lattices"], "lattices"),
     (["--engine", "dense", "--adapt", "vtln"], "adaptation"),
 ])
@@ -141,8 +213,9 @@ def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
     assert not list((tmp_path / "port").rglob("*.lna"))
 
 
-@pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch,
-                                 FeatureGenerator, GmmScorer.from_model])
+@pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch, BeamSearch,
+                                 Toolbox, FeatureGenerator,
+                                 GmmScorer.from_model])
 def test_entry_points_default_to_cuda(monkeypatch, cls):
     """The public constructors default to the GPU and, with none, raise
     before reading anything."""
@@ -151,7 +224,7 @@ def test_entry_points_default_to_cuda(monkeypatch, cls):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if cls is PhoneProbs:
             cls("no-model-read-before-the-device-check", "feats.cfg")
-        elif cls is DenseBeamSearch:
+        elif cls in (DenseBeamSearch, BeamSearch):
             cls(None, None, None)
         else:               # a config path / a model never read
             cls("no-file-read-before-the-device-check")

@@ -21,7 +21,8 @@ from aaltoasr_tpu.decoder.search_dense import DenseBeamSearch as JDense
 from aaltoasr_tpu_torch import convert, synth
 from aaltoasr_tpu_torch.decoder.ngram import (
     NGramFsa, hash_bucket, lm_walk_device)
-from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch, _top_k
+from aaltoasr_tpu_torch.decoder.search import top_k
+from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
 
 from tests.test_decoder import make_decode_task, synth_obs
 
@@ -111,7 +112,7 @@ def test_top_k_tie_order_matches_lax():
                   [0.5, 0.5, 0.5, 0.5, 0.7, 0.5, 0.5, 0.5]], np.float32)
     for k in (1, 3, 5, 8):
         _, want = jax.lax.top_k(jnp.asarray(x), k)
-        np.testing.assert_array_equal(_top_k(torch.tensor(x), k).numpy(),
+        np.testing.assert_array_equal(top_k(torch.tensor(x), k).numpy(),
                                       np.asarray(want))
 
 
