@@ -5,8 +5,8 @@ Counterpart of `aaltoasr_tpu/cli/decode.py`: composes `Toolbox` like
 decodes each recipe utterance's LNA file with the exact engine on
 ``--device`` (default ``cuda``; with no GPU it raises unless ``--device
 cpu`` is given) and prints the 1-best hypothesis.  Defaults follow
-`pyrectool/recognize-batch.sh:21-23`.  ``--lattice-grammar`` is not
-ported yet and raises.
+`pyrectool/recognize-batch.sh:21-23`.  ``--lattice-grammar`` decodes
+against an HTK SLF lattice in place of the n-gram.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ from __future__ import annotations
 import argparse
 import sys
 
-from aaltoasr_tpu_torch.decoder.search import LATTICE_ITEM
 from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 
@@ -26,7 +25,8 @@ def main(argv=None) -> int:
     p.add_argument("-l", "--lexicon", required=True)
     p.add_argument("-n", "--ngram", help="ARPA LM")
     p.add_argument("--lattice-grammar",
-                   help="HTK SLF lattice used as the grammar (not ported)")
+                   help="HTK SLF lattice used as the grammar instead of an "
+                        "n-gram (htk_lattice_grammar_read)")
     p.add_argument("-r", "--recipe", required=True,
                    help="recipe with lna= fields")
     p.add_argument("--beam", type=float, default=280.0)
@@ -49,12 +49,12 @@ def main(argv=None) -> int:
 
     if not (args.ngram or args.lattice_grammar):
         p.error("one of -n/--ngram or --lattice-grammar is required")
-    if args.lattice_grammar:
-        raise NotImplementedError(
-            f"lattice grammars are not ported yet ({LATTICE_ITEM})")
     t = Toolbox(args.ph, args.dur, device=args.device)
     t.lex_read(args.lexicon)
-    t.ngram_read(args.ngram)
+    if args.lattice_grammar:
+        t.htk_lattice_grammar_read(args.lattice_grammar)
+    else:
+        t.ngram_read(args.ngram)
     t.set_global_beam(args.beam)
     t.set_token_limit(args.tokens)
     t.set_lm_scale(args.lm_scale)

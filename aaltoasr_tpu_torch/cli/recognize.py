@@ -3,12 +3,13 @@
 Counterpart of `aaltoasr_tpu/cli/recognize.py`, with the same flags and
 rectool's reuse semantics (rectool.py:613-634, 1045-1056): LNA
 generation through the scoring pipeline (skip-if-exists), then decoding
-through `Toolbox` with 1-best output: the exact engine one utterance at
-a time, or the dense engine in batches; ``--engine auto`` (the default)
-picks exact below 100k tree nodes.  It runs on ``--device`` (default
-``cuda``; with no GPU it raises unless ``--device cpu`` is given).
-Adaptation, lattices, n-best lists, confidences, state segmentations
-and context lookahead are not ported yet and raise NotImplementedError
+through `Toolbox` with 1-best output, and on request SLF lattices
+(``<lna>.slf``), n-best lists and confusion-network confidences: the
+exact engine one utterance at a time, or the dense engine in batches;
+``--engine auto`` (the default) picks exact below 100k tree nodes.  It
+runs on ``--device`` (default ``cuda``; with no GPU it raises unless
+``--device cpu`` is given).  Adaptation, state segmentations and
+context lookahead are not ported yet and raise NotImplementedError
 naming the ROADMAP item that brings them.
 """
 
@@ -20,9 +21,10 @@ import sys
 
 import numpy as np
 
-from aaltoasr_tpu_torch.decoder.search import EXACT_REST_ITEM, LATTICE_ITEM
+from aaltoasr_tpu_torch.decoder.search import EXACT_REST_ITEM
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
 from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
+from aaltoasr_tpu_torch.decoder.wordgraph import confusion_network
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.lna import read_lna
 from aaltoasr_tpu_torch.formats.recipe import Recipe
@@ -34,8 +36,6 @@ AUTO_ENGINE_NODE_THRESHOLD = 100_000
 _LATER = {
     "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
              "adaptation)",
-    "lattice": "lattices, n-best lists and confidences are not ported "
-               f"yet ({LATTICE_ITEM})",
     "stateseg": f"state segmentation is not ported yet ({EXACT_REST_ITEM})",
 }
 
@@ -96,13 +96,13 @@ def main(argv=None) -> int:
                    help="exact engine: branch-expansion budget (0 = "
                         "every arc of every token)")
     p.add_argument("--lattices", action="store_true",
-                   help="write SLF word graphs (not ported)")
+                   help="write SLF word graphs next to the LNAs")
     p.add_argument("--nbest", type=int, default=0,
-                   help="print n-best lists (not ported)")
+                   help="print n-best lists")
     p.add_argument("--stateseg", action="store_true",
                    help="write state segmentations (not ported)")
     p.add_argument("--confidence", action="store_true",
-                   help="print confidences (not ported)")
+                   help="print per-word confusion-network confidences")
     p.add_argument("--we-prewalk", type=int, default=0,
                    help="exact engine: LM-walk only the top-N word ends "
                         "ranked by a static unigram estimate (0 = all)")
@@ -140,8 +140,6 @@ def main(argv=None) -> int:
 
     if args.adapt:
         raise NotImplementedError(_LATER["adapt"])
-    if args.lattices or args.nbest or args.confidence:
-        raise NotImplementedError(_LATER["lattice"])
     if args.stateseg:
         raise NotImplementedError(_LATER["stateseg"])
 
@@ -205,6 +203,8 @@ def main(argv=None) -> int:
             print(f"LNA: {rinfo.audio_path}", file=sys.stderr)
         pp.generate_to_file(rinfo.audio_path, path)
 
+    need_lattice = bool(args.lattices or args.nbest or args.confidence)
+
     def emit(rinfo, lna_path, res):
         key = rinfo.utterance_id or os.path.basename(lna_path)
         text = " ".join(res.words)
@@ -217,11 +217,22 @@ def main(argv=None) -> int:
             text = text.replace("<s>", "").replace("</s>", "")
             text = " ".join(text.split())
         print(f"{text} ({key})")
+        if need_lattice:
+            g = res.word_graph()
+            if args.lattices:
+                g.write_slf(lna_path + ".slf")
+            if args.nbest > 0:
+                for i, (words, score) in enumerate(g.nbest(args.nbest)):
+                    print(f"  {i + 1}: {' '.join(words)} ({score:.3f})")
+            if args.confidence:
+                conf = " ".join(f"{w}({c:.2f})"
+                                for w, c, _ in confusion_network(g))
+                print(f"  conf: {conf}")
 
     items = list(zip(recipe, lna_paths))
     if engine == "exact":
         for rinfo, path in items:
-            emit(rinfo, path, t.lna_decode(path, lattice=False))
+            emit(rinfo, path, t.lna_decode(path, lattice=need_lattice))
         return 0
 
     # the dense engine: utterances padded to a shared frame count and
@@ -237,7 +248,8 @@ def main(argv=None) -> int:
         for i, o in enumerate(obs_list):
             obs[i, :o.shape[0]] = o
             n[i] = o.shape[0]
-        for (rinfo, path), res in zip(group, search.decode_batch(obs, n)):
+        results = search.decode_batch(obs, n, lattice=need_lattice)
+        for (rinfo, path), res in zip(group, results):
             emit(rinfo, path, res)
     return 0
 

@@ -61,6 +61,7 @@ import torch
 from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
 from aaltoasr_tpu_torch.decoder.ngram import NGramFsa, lm_walk_device
+from aaltoasr_tpu_torch.decoder.wordgraph import WordGraph
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
 
@@ -69,8 +70,7 @@ NEG_INF = float("-inf")
 POS_INF = float("inf")
 DEAD_KEY = torch.iinfo(torch.int64).max
 
-# the ROADMAP items that bring what the port does not have yet
-LATTICE_ITEM = "ROADMAP queue 1 item 3: lattices and wordgraph"
+# the ROADMAP item that brings what the port does not have yet
 EXACT_REST_ITEM = "ROADMAP queue 1 item 4: the rest of the exact engine"
 
 
@@ -97,6 +97,9 @@ class SearchConfig:
     require_sentence_end: bool = False  # add P(</s>|h) to final
                                     # hypotheses (TokenPassSearch.cc:2267)
     sentence_end: str = "</s>"
+    records_half: bool = False      # dense engine: bf16 record scores
+                                    # (halves their device->host bytes;
+                                    # lattice scores lose ~3 digits)
     overflow_tokens: int = 0        # >0: in-word arcs as a dense [W, 3]
                                     # table plus branch arcs for the
                                     # top-O tokens only; 0 = every arc
@@ -1049,6 +1052,13 @@ class DecodeResult:
         return expand_word_boundaries(
             [self.search.tree.vocab[i] for i in ids], self.search.config)
 
-    def word_graph(self):
-        raise NotImplementedError(
-            f"word graphs are not ported yet ({LATTICE_ITEM})")
+    def word_graph(self) -> WordGraph:
+        """The lattice of the records (the word committed at the final
+        frame is not an arc of it, as in the reference)."""
+        if self.rec_words is None:
+            raise RuntimeError(
+                "decoded with lattice=False: records were not fetched")
+        return WordGraph.from_records(
+            self.search.tree.vocab, self.search.config,
+            self.rec_words, self.rec_prevs, self.rec_ams, self.rec_lmss,
+            self.final_ptr, self.final_am, self.final_lms)

@@ -20,9 +20,15 @@ Step per frame:
 4. observation log-likelihoods, then the global beam.
 
 Top-E and top-C selections break ties by lower index, as
-`jax.lax.top_k` does.  Frames run as a Python loop; the 1-best
-traceback runs on the host over the record arrays.  Lattices and
-interpolated LMs are not ported yet.
+`jax.lax.top_k` does.  Sums x + lm_scale * y are one fused multiply-add
+(`fma`), as XLA computes them on the CPU: rounded twice, they move
+totals by an ulp, and near-tied hypotheses then resolve otherwise than
+the reference's.  Frames run as a Python loop; the records stay
+on the device until it ends, then one fetch brings them to the host for
+the 1-best traceback.  With ``lattice`` (the default) the records also
+carry each word's cumulative am and lm scores, for
+`DecodeResult.word_graph`; ``records_half`` sends those scores as
+bfloat16.  Interpolated LMs are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
 from aaltoasr_tpu_torch.decoder.ngram import NGramFsa, lm_walk_device
 from aaltoasr_tpu_torch.decoder.search import (
-    EXACT_REST_ITEM, LATTICE_ITEM, DecodeResult, SearchConfig,
+    EXACT_REST_ITEM, DecodeResult, SearchConfig,
     expand_word_boundaries, multiword_components, top_k, traceback,
     walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
@@ -81,6 +87,12 @@ def _shift_structure(tree: PrefixTree):
             grp_src[m, f] = n
             grp_lp[m, f] = l
     return shifts, grp_src, grp_lp, inv
+
+
+def fma(x: torch.Tensor, y: torch.Tensor, s: float) -> torch.Tensor:
+    """x + s * y rounded once, as XLA fuses it on the CPU (torch's add
+    with alpha is a fused multiply-add on the CPU and the GPU)."""
+    return torch.add(x, y, alpha=s)
 
 
 def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -249,10 +261,11 @@ class DenseBeamSearch:
             t[prefix + "dur_lncoef"] * torch.log(d)
             - d * t[prefix + "dur_invb"] + t[prefix + "dur_const"])
 
-    def _step(self, state, obs_t, step_idx):
+    def _step(self, state, obs_t, step_idx, lattice=False):
         """One frame for [B, N] state arrays; obs_t is [B, N] (gathered
         per node).  The carried score is the total am + lm_scale*lms;
-        dead nodes hold LOG_ZERO."""
+        dead nodes hold LOG_ZERO.  The frame's [B, E] records are (word,
+        previous record) and, with ``lattice``, (am, lms) too."""
         cfg = self.config
         t = self.t
         total, lms, lm, dur, rec, bo, alive = state
@@ -307,14 +320,14 @@ class DenseBeamSearch:
         tot_wn = total[:, wn]
         lms_wn = lms[:, wn]
         we_durb = self._dur_bonus(dur[:, wn], "we_")
-        we_am = tot_wn - a_lm * lms_wn + t["ts_exit"] + we_durb
+        we_am = fma(tot_wn, lms_wn, -a_lm) + t["ts_exit"] + we_durb
         base_lms = lms_wn + t["we_pron"]
         appr_lm = torch.where(skip, 0.0, bo[:, wn] + t["we_uni"] + ins)
         slot_ok = ((tot_wn > LOG_ZERO / 2) & (t["we_exit"] > LOG_ZERO / 2)
                    & (skip | (t["we_lmid"] >= 0)))
         rank0 = torch.where(
             slot_ok,
-            tot_wn + t["ts_exit"] + we_durb + a_lm * (t["we_pron"] + appr_lm),
+            fma(tot_wn + t["ts_exit"] + we_durb, t["we_pron"] + appr_lm, a_lm),
             NEG_INF)
         k = min(E, Nw)
         cand = top_k(rank0, k)                            # [B, k]
@@ -344,13 +357,17 @@ class DenseBeamSearch:
             if self._end_tid >= 0:
                 lm_next = torch.where(c_word == self._end_tid,
                                       self._wb_reset, lm_next)
-        c_total = torch.where(c_alive, c_am + a_lm * c_lms, NEG_INF)
+        c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
 
         # records: the E candidates with exact scores
         c_prev = rec[:, wn].gather(1, cand)
         is_word = c_alive & (c_word >= 0)
         rec_word = torch.where(c_alive, c_word, -1)
         rec_prev = torch.where(is_word, c_prev, -1)
+        recs = (rec_word, rec_prev)
+        if lattice:
+            recs += (torch.where(is_word, c_am, 0.0),
+                     torch.where(is_word, c_lms, 0.0))
         slot_ptr = step_idx * E + torch.arange(E, device=dvc)
         e_rec = torch.where(is_word, slot_ptr, c_prev)
 
@@ -402,10 +419,10 @@ class DenseBeamSearch:
         bestn = new_total.argmax(dim=1, keepdim=True)
         best_lms = new_lms.gather(1, bestn)[:, 0]
         mx = mx[:, 0]
-        fin = (new_rec.gather(1, bestn)[:, 0], mx, mx - a_lm * best_lms,
+        fin = (new_rec.gather(1, bestn)[:, 0], mx, fma(mx, best_lms, -a_lm),
                best_lms)
         return ((new_total, new_lms, new_lm, new_dur, new_rec, new_bo,
-                 new_alive), (rec_word, rec_prev), fin)
+                 new_alive), recs, fin)
 
     def _fin_of(self, state):
         total, lms, _lm, _dur, rec, _bo, alive = state
@@ -415,7 +432,7 @@ class DenseBeamSearch:
         best_rec = torch.where(isb, rec, torch.iinfo(torch.int64).min
                                ).max(dim=1).values
         best_lms = torch.where(isb, lms, NEG_INF).max(dim=1).values
-        return (best_rec, mx, mx - self.config.lm_scale_eff * best_lms,
+        return (best_rec, mx, fma(mx, best_lms, -self.config.lm_scale_eff),
                 best_lms)
 
     def _final_commit(self, state):
@@ -461,7 +478,7 @@ class DenseBeamSearch:
                    + sc_w + end2)
         alt_tot = torch.where(
             w_ok & (sc_w > LOG_ZERO / 2),
-            tot[:, wn] - a_lm * lms[:, wn] + a_lm * alt_lms, NEG_INF)
+            fma(fma(tot[:, wn], lms[:, wn], -a_lm), alt_lms, a_lm), NEG_INF)
         base_total = torch.where(alive & t["fin_base_ok"], base_tot, NEG_INF)
         allt = torch.cat([base_total, alt_tot], dim=1)
         besti = allt.argmax(dim=1, keepdim=True)
@@ -473,12 +490,15 @@ class DenseBeamSearch:
                                base_lms.gather(1, bestn))
         fw_best = torch.where(is_alt, w_word.gather(1, slot), -1)
         return (rec.gather(1, bestn)[:, 0], best_total[:, 0],
-                (best_total - a_lm * best_lms)[:, 0], best_lms[:, 0],
+                fma(best_total, best_lms, -a_lm)[:, 0], best_lms[:, 0],
                 fw_best[:, 0])
 
-    def _decode(self, obs, n_frames, lm_init):
+    def _decode(self, obs, n_frames, lm_init, lattice):
         """[B, T, S] obs, [B] frame counts -> final scalars and the
-        [B, T-1, E] record arrays (word id, previous record pointer)."""
+        [B, T-1, E] record arrays: (word id, previous record pointer) as
+        one int64 [2, B, T-1, E] tensor and, with ``lattice``, (am, lms)
+        as one [2, B, T-1, E] float tensor (bfloat16 with
+        ``records_half``), else None."""
         cfg = self.config
         t = self.t
         B, T, _ = obs.shape
@@ -501,36 +521,44 @@ class DenseBeamSearch:
         # run on past n_frames.  Otherwise freeze the state at n_frames.
         snap = not cfg.require_sentence_end
         fin = self._fin_of(state)
-        rec_words, rec_prevs = [], []
+        # invalid frames hold no record: word and pointer -1, scores 0
+        fills = (-1, -1, 0.0, 0.0)
+        recs = [[] for _ in range(4 if lattice else 2)]
         for i in range(T - 1):
             v = (i + 1) < n_frames                       # [B]
-            new_state, (rw, rp), new_fin = self._step(
-                state, obs[:, i + 1][:, t["pdf"]], i)
+            new_state, rows, new_fin = self._step(
+                state, obs[:, i + 1][:, t["pdf"]], i, lattice)
             if snap:
                 fin = tuple(torch.where(v, n, o) for n, o in zip(new_fin, fin))
                 state = new_state
             else:
                 state = tuple(torch.where(v[:, None], n, o)
                               for n, o in zip(new_state, state))
-            rec_words.append(torch.where(v[:, None], rw, -1))
-            rec_prevs.append(torch.where(v[:, None], rp, -1))
+            for lst, r, f in zip(recs, rows, fills):
+                lst.append(torch.where(v[:, None], r, f))
         if snap:
             finals = fin + (torch.full((B,), -1, dtype=torch.int64,
                                        device=dvc),)
         else:
             finals = self._final_commit(state)
         E = cfg.num_records
-        if rec_words:
-            recs = torch.stack([torch.stack(rec_words, 1),
-                                torch.stack(rec_prevs, 1)])
-        else:
-            recs = torch.full((2, B, 0, E), -1, dtype=torch.int64, device=dvc)
-        return finals, recs
+        stacked = [torch.stack(lst, 1) if lst else
+                   torch.full((B, 0, E), f, device=dvc,
+                              dtype=torch.int64 if j < 2 else torch.float32)
+                   for j, (lst, f) in enumerate(zip(recs, fills))]
+        rec_ints = torch.stack(stacked[:2])
+        if not lattice:
+            return finals, rec_ints, None
+        rec_floats = torch.stack(stacked[2:])
+        if cfg.records_half:
+            rec_floats = rec_floats.to(torch.bfloat16)
+        return finals, rec_ints, rec_floats
 
     # -- public API -------------------------------------------------------
     def decode(self, obs, n_frames=None, sentence_start="<s>",
-               lattice=False) -> DecodeResult:
-        """[T, S] state log-probs -> the 1-best result."""
+               lattice=True) -> DecodeResult:
+        """[T, S] state log-probs -> the 1-best result, with the records
+        of a word graph unless ``lattice`` is false."""
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
         if n_frames is None:
             n_frames = obs.shape[0]
@@ -538,20 +566,30 @@ class DenseBeamSearch:
                                  lattice=lattice)[0]
 
     def decode_batch(self, obs, n_frames, sentence_start="<s>",
-                     lattice=False) -> list:
-        """[B, T, S] state log-probs + [B] frame counts -> B results."""
-        if lattice:
-            raise NotImplementedError(
-                f"lattice output is not ported yet ({LATTICE_ITEM})")
+                     lattice=True) -> list:
+        """[B, T, S] state log-probs + [B] frame counts -> B results;
+        with ``lattice`` each carries its records (`word_graph`)."""
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
         n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,
                             device=self.device)
         lm_init = int(self.lm.initial_state(sentence_start))
-        finals, recs = self._decode(obs, n, lm_init)
+        finals, rec_ints, rec_floats = self._decode(obs, n, lm_init, lattice)
         finals = [f.cpu().numpy() for f in finals]
-        recs = recs.cpu().numpy()
-        wmax = min(self._traceback_cap, obs.shape[1])
+        recs = rec_ints.cpu().numpy()
         out = []
+        if lattice:
+            # bfloat16 records come back to float32 on the host
+            rec_f = rec_floats.cpu().float().numpy()
+            for b in range(obs.shape[0]):
+                out.append(DecodeResult(
+                    search=self, final_ptr=int(finals[0][b]),
+                    log_prob=float(finals[1][b]),
+                    final_am=float(finals[2][b]),
+                    final_lms=float(finals[3][b]), rec_words=recs[0, b],
+                    rec_prevs=recs[1, b], rec_ams=rec_f[0, b],
+                    rec_lmss=rec_f[1, b], final_word=int(finals[4][b])))
+            return out
+        wmax = min(self._traceback_cap, obs.shape[1])
         for b in range(obs.shape[0]):
             ids = traceback(recs[0, b], recs[1, b], int(finals[0][b]),
                             int(finals[4][b]), wmax)

@@ -4,9 +4,10 @@ Counterpart of `aaltoasr_tpu/decoder/toolbox.py` (the reference's
 `decoder/src/Toolbox.{hh,cc}`): loads the .ph/.dur topology, a lexicon
 and an ARPA LM, owns the search knobs, and decodes LNA files or state
 log-probs with the exact engine (`search.BeamSearch`) on ``device``: the
-GPU unless the caller passes ``device="cpu"``.  The loading calls and
-setters are those `recognize` and `decode` use; options not ported yet
-raise NotImplementedError in their setter, before any decode.
+GPU unless the caller passes ``device="cpu"``.  The loading calls
+(ARPA or binary LMs, HTK lattices as grammars) and setters are those
+`recognize` and `decode` use; options not ported yet raise
+NotImplementedError in their setter, before any decode.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from aaltoasr_tpu_torch.decoder.lexicon import (
 from aaltoasr_tpu_torch.decoder.ngram import NGramFsa
 from aaltoasr_tpu_torch.decoder.search import (
     EXACT_REST_ITEM, BeamSearch, SearchConfig)
+from aaltoasr_tpu_torch.decoder.slf import SlfLattice, lattice_grammar
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.arpa import read_arpa
 from aaltoasr_tpu_torch.formats.lna import read_lna
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_dur, read_ph
+from aaltoasr_tpu_torch.formats.treegram_bin import read_bin
 
 
 class Toolbox:
@@ -50,6 +53,7 @@ class Toolbox:
         self._word_boundary = ""
         self._silence_is_word = True
         self._optional_short_silence = False
+        self._generate_word_graph = False
 
     # -- model/lexicon/LM loading (Toolbox.hh:42-108) ---------------------
     def lex_read(self, path) -> None:
@@ -72,8 +76,17 @@ class Toolbox:
         self._optional_short_silence = bool(value)
         self._search = None
 
-    def ngram_read(self, path) -> None:
-        self.lm = NGramFsa.from_arpa(read_arpa(path))
+    def ngram_read(self, path, binary: bool = False) -> None:
+        """An ARPA LM, or a binary TreeGram one with ``binary``."""
+        lm = read_bin(path) if binary else read_arpa(path)
+        self.lm = NGramFsa.from_arpa(lm)
+        self._search = None
+
+    def htk_lattice_grammar_read(self, path) -> None:
+        """Use an HTK SLF lattice as the grammar
+        (Toolbox::htk_lattice_grammar_read, Toolbox.cc:199-220): the
+        decode is constrained to word sequences the lattice accepts."""
+        self.lm = lattice_grammar(SlfLattice.read(path))
         self._search = None
 
     def read_lookahead_ngram(self, path) -> None:
@@ -167,6 +180,12 @@ class Toolbox:
         self.config.require_sentence_end = bool(value)
         self._search = None
 
+    def set_generate_word_graph(self, value) -> None:
+        """The reference opts in to word-graph bookkeeping (Toolbox.hh:
+        300); here every decode with lattice=True keeps the records, and
+        this flag makes `lna_decode` keep them whatever it is asked."""
+        self._generate_word_graph = bool(value)
+
     # -- decoding ---------------------------------------------------------
     def _ensure_search(self) -> BeamSearch:
         if self.tree is None:
@@ -194,4 +213,4 @@ class Toolbox:
     def lna_decode(self, lna_path: str, lattice: bool = True):
         """Decode one LNA file (lna_open + run loop equivalent)."""
         lp, _ = read_lna(lna_path)
-        return self.decode(lp, lattice=lattice)
+        return self.decode(lp, lattice=lattice or self._generate_word_graph)

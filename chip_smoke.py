@@ -46,7 +46,19 @@ Phases, each printing a summary line:
    default knobs (W=1,024, E=128) on 4 utterances, planted words checked;
    then `recognize` at its default engine (exact on this task) on 2 of
    the planted utterances written as LNAs, planted words checked, and on
-   the first of them on the CPU, whose line must be identical.
+   the first of them on the CPU, whose line must be identical;
+9. lattices, on the same task and planted observations: the dense
+   engine at the `decode_xrt` point with lattice=False, lattice=True and
+   bfloat16 records (words identical in all three, bfloat16 records
+   within one bfloat16 step), timed, with the bytes fetched and the host
+   time of `word_graph()` per utterance; the exact engine at phase 8's
+   bench point on 2 utterances, the same; the first utterance of each
+   on the card against the CPU (records, parsed SLF, nbest(5),
+   confusion-network confidences); `recognize --lattices --nbest 3
+   --confidence` with either engine on phase 8's planted LNAs, the first
+   on the CPU too (1-best lines identical, SLF files alike);
+   `decode --lattice-grammar` of the first SLF on the card and the CPU
+   (identical lines) and `lattice_rescore --best` of it, timed.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -78,6 +90,8 @@ GMM_REPLACES = "aaltoasr_tpu/ops/gmm_pallas.py:144"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, the same
 SPEAKERS = ("s0", "s1", "s2")
+# the 1000-word cross-word triphone trigram task of phases 5-9
+TASK = dict(num_words=1000, order=3, triphone=True, durations=True)
 
 
 def fail(msg: str):
@@ -445,13 +459,13 @@ def phase_decode(device, task, B=128, T=1000, card=""):
     g = torch.Generator(device=device).manual_seed(1)
     obs = planted_obs(plan, task.model.num_states, g, device=device)
     n = np.full(B, T)
-    res = search.decode_batch(obs, n)                     # warm
+    res = search.decode_batch(obs, n, lattice=False)      # warm
     agree, tot = _planted(res, true_words)
     best = float("inf")
     for _ in range(3):
         sync(device)
         t0 = time.perf_counter()
-        search.decode_batch(obs, n)
+        search.decode_batch(obs, n, lattice=False)
         sync(device)
         best = min(best, time.perf_counter() - t0)
     xrt = B * T / 125.0 / best
@@ -744,21 +758,29 @@ def _profile_steps(search, obs, device, frames=20, warm=5) -> str:
             + "; ".join(f"{100.0 * v / busy:.1f}% {k[:60]}" for k, v in top))
 
 
-def _recognize(argv, device) -> tuple[list, str, float]:
-    """`cli.recognize` on `argv`: (its result lines, its stderr, wall s);
-    fails unless it returns 0 through the exact engine."""
-    from aaltoasr_tpu_torch.cli import recognize
+def _cli(main, argv) -> tuple[str, str, float]:
+    """(stdout, stderr, wall s) of one CLI run; fails unless it returns
+    0."""
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = recognize.main(argv)
-    sync(device)
-    wall = time.perf_counter() - t0
-    if rc not in (0, None) or "-> exact" not in err.getvalue():
-        fail(f"recognize {' '.join(argv)} returned {rc} without the exact "
-             "engine")
-    lines = [ln for ln in out.getvalue().splitlines() if ln.endswith(")")]
-    return lines, err.getvalue().strip(), wall
+        rc = main(argv)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    if rc not in (0, None):
+        fail(f"{main.__module__} {' '.join(argv)} returned {rc}")
+    return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _recognize(argv) -> tuple[list, str, float]:
+    """`cli.recognize` on `argv`: (its result lines, its stderr, wall s);
+    fails unless it returns 0 through the exact engine."""
+    from aaltoasr_tpu_torch.cli import recognize
+    out, err, wall = _cli(recognize.main, argv)
+    if "-> exact" not in err:
+        fail(f"recognize {' '.join(argv)} did not run the exact engine")
+    lines = [ln for ln in out.splitlines() if ln.endswith(")")]
+    return lines, err.strip(), wall
 
 
 def phase_exact(device, task, recognize_argv, card="", B=128, T=1000,
@@ -857,8 +879,7 @@ def phase_exact(device, task, recognize_argv, card="", B=128, T=1000,
         with open(recipe, "w") as f:
             f.write("".join(f"audio={pdir}/p{u}.wav lna=p{u}.lna "
                             f"utterance=p{u}\n" for u in range(count)))
-        lines[side], engine, wall = _recognize(argv + ["--device", dev],
-                                               device)
+        lines[side], engine, wall = _recognize(argv + ["--device", dev])
         print(f"[8] recognize ({engine}) --device {dev}: "
               f"{len(lines[side])} planted utterances in {wall:.3f} s",
               flush=True)
@@ -879,6 +900,331 @@ def phase_exact(device, task, recognize_argv, card="", B=128, T=1000,
         fail(f"recognize lines, card against CPU: {lines}")
 
 
+def _bf16_step(x: np.ndarray) -> np.ndarray:
+    """The spacing of bfloat16 values (8 significant bits) at |x|."""
+    a = np.abs(x.astype(np.float64))
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    return np.where(a > 0, 2.0 ** (e - 7), 0.0)
+
+
+def _slf(graph) -> str:
+    out = io.StringIO()
+    graph.write_slf(out)
+    return out.getvalue()
+
+
+def _slf_diff(want: str, got: str) -> str:
+    """'' when two SLF texts parse to the same node frames and arc keys
+    (S, E, W) in the same order, arc scores within atol 2e-3."""
+    from aaltoasr_tpu_torch.decoder.slf import SlfLattice
+    a, b = SlfLattice.read(want), SlfLattice.read(got)
+    if a.nodes != b.nodes or (a.start, a.end) != (b.start, b.end):
+        return "SLF nodes differ"
+    if [(x["S"], x["E"], x["W"]) for x in a.arcs] != [
+            (x["S"], x["E"], x["W"]) for x in b.arcs]:
+        return "SLF arcs differ"
+    d = max((abs(x[k] - y[k]) for x, y in zip(a.arcs, b.arcs)
+             for k in ("a", "l")), default=0.0)
+    return f"SLF arc scores differ by {d:.3g}" if d > 2e-3 else ""
+
+
+def _lattice_diff(card, cpu) -> str:
+    """'' when two results agree as phase [9] (c) asks: record words and
+    pointers identical, scores within rtol 1e-5 atol 1e-3; the SLF as
+    `_slf_diff`; nbest(5) word sequences identical; confusion-network
+    confidences within 1e-3."""
+    from aaltoasr_tpu_torch.decoder.wordgraph import confusion_network
+    if card.words != cpu.words or card.final_word != cpu.final_word:
+        return "words differ"
+    if not (np.array_equal(card.rec_words, cpu.rec_words)
+            and np.array_equal(card.rec_prevs, cpu.rec_prevs)):
+        return "record words or pointers differ"
+    if not all(np.allclose(a, b, rtol=1e-5, atol=1e-3) for a, b in (
+            (card.rec_ams, cpu.rec_ams), (card.rec_lmss, cpu.rec_lmss),
+            (card.log_prob, cpu.log_prob))):
+        return "record scores differ"
+    g_card, g_cpu = card.word_graph(), cpu.word_graph()
+    diff = _slf_diff(_slf(g_cpu), _slf(g_card))
+    if diff:
+        return diff
+    if [w for w, _ in g_card.nbest(5)] != [w for w, _ in g_cpu.nbest(5)]:
+        return "nbest(5) word sequences differ"
+    cn_card, cn_cpu = confusion_network(g_card), confusion_network(g_cpu)
+    if [w for w, _, _ in cn_card] != [w for w, _, _ in cn_cpu] or any(
+            abs(a[1] - b[1]) > 1e-3 for a, b in zip(cn_card, cn_cpu)):
+        return "confusion-network confidences differ"
+    return ""
+
+
+def _graphs(results, true_words) -> str:
+    """`word_graph()` host ms per utterance (median, max), node and arc
+    counts, and nbest(1)'s planted words in place, over `results`."""
+    ms, nodes, arcs, agree, tot = [], [], [], 0, 0
+    for res, true in zip(results, true_words):
+        t0 = time.perf_counter()
+        g = res.word_graph()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        nodes.append(len(g.nodes))
+        arcs.append(len(g.arcs))
+        best = g.nbest(1)[0][0]
+        agree += sum(h == f"w{r}" for h, r in zip(best, true))
+        tot += len(true)
+    return (f"word_graph() host ms per utterance median {np.median(ms):.1f} "
+            f"max {max(ms):.1f} over {len(ms)}; nodes median "
+            f"{int(np.median(nodes))} max {max(nodes)}, arcs median "
+            f"{int(np.median(arcs))} max {max(arcs)}; nbest(1) planted words "
+            f"{agree}/{tot}")
+
+
+def _fetched(B, T, E, lattice, half=False) -> int:
+    """Bytes a decode of B utterances of T frames brings to the host:
+    int64 (word, pointer) pairs for every record slot, with ``lattice``
+    the (am, lm) scores too (2 bytes each with ``half``, else 4), and
+    five 8-byte scalars an utterance."""
+    score = (4 if half else 8) if lattice else 0
+    return B * (T - 1) * E * (16 + score) + 40 * B
+
+
+# the records and finals a CPU decode sends back to the parent process
+_RESULT_FIELDS = ("final_ptr", "log_prob", "final_am", "final_lms",
+                  "rec_words", "rec_prevs", "rec_ams", "rec_lmss",
+                  "final_word")
+
+
+def _cpu_job(kind: str, args):
+    """Phase [9]'s CPU side, in a worker process of one thread: a
+    lattice decode (``kind`` "dense" or "exact", args = (`synth_task`
+    arguments, config fields, [1, T, S] observations)) returning the
+    result's fields, or a CLI run (``kind`` its module, args = argv)
+    returning `_cli`'s (stdout, stderr, wall s)."""
+    torch.set_num_threads(1)
+    if kind in ("dense", "exact"):
+        from aaltoasr_tpu_torch.decoder.search import BeamSearch, SearchConfig
+        from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+        from aaltoasr_tpu_torch.synth import synth_task
+        task_args, fields, obs = args
+        task = synth_task(**task_args)
+        cls = DenseBeamSearch if kind == "dense" else BeamSearch
+        res = cls(task.tree, task.fsa, task.model, SearchConfig(**fields),
+                  device="cpu").decode_batch(obs, [obs.shape[1]],
+                                             lattice=True)[0]
+        return {f: getattr(res, f) for f in _RESULT_FIELDS}
+    import importlib
+    return _cli(importlib.import_module(kind).main, args)
+
+
+def phase_lattice(device, task, recognize_argv, card="", B=128, T=1000,
+                  n_exact=2, task_args=TASK):
+    """[9] Lattices: (a) the dense engine at the `decode_xrt` point with
+    lattice=False, lattice=True and bfloat16 records; (b) the exact
+    engine at phase 8's bench cross-word point on n_exact utterances,
+    lattice=False and True; (d) `recognize --lattices --nbest 3
+    --confidence` with either engine on phase 8's planted LNAs,
+    `decode --lattice-grammar` of the first one's SLF, and
+    `lattice_rescore --best` of that SLF with the task's ARPA.  The CPU
+    side, (c) the first utterance of (a) and of (b) and the first of (d)
+    (its recognize runs and the decode), runs in worker processes beside
+    (d)'s card runs, after the timed runs of (a) and (b); they build
+    ``task`` anew from ``task_args``."""
+    import dataclasses
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import decode, lattice_rescore, recognize
+    from aaltoasr_tpu_torch.decoder.search import (
+        BeamSearch, DecodeResult, SearchConfig)
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch, fma
+    from aaltoasr_tpu_torch.synth import planted_obs, synth_obs
+    t_phase = time.perf_counter()
+    # the dense step's x + s * y must round once on the card as on the
+    # CPU (where XLA, the reference, fuses it)
+    g = torch.Generator(device=device).manual_seed(2)
+    x, y = (torch.randn(10**6, generator=g, device=device) * 30
+            for _ in range(2))
+    scale = 30.0 / 2.302585092994046
+    want = (x.double() + torch.tensor(scale, dtype=torch.float32).double()
+            * y.double()).float()
+    if not torch.equal(fma(x, y, scale), want):
+        fail("search_dense.fma is not a fused multiply-add on the card")
+    twice = float((x + scale * y != want).float().mean())
+    print(f"[9] search_dense.fma on 10^6 values: identical to a fused "
+          f"multiply-add (float64 then float32); x + s * y rounded twice "
+          f"differs on {100.0 * twice:.1f}% of them", flush=True)
+    plan, true_words = synth_obs(task.model, task.info, B, T)
+    g = torch.Generator(device=device).manual_seed(1)
+    obs = planted_obs(plan, task.model.num_states, g, device=device)
+    n = np.full(B, T)
+
+    def timed(search, o, nn, lattice):
+        sync(device)
+        t0 = time.perf_counter()
+        res = search.decode_batch(o, nn, lattice=lattice)
+        sync(device)
+        return res, time.perf_counter() - t0
+
+    # (a) the dense engine
+    cfg_dense = SearchConfig(lm_scale=30.0, duration_scale=3.0,
+                             num_records=32)
+    runs = {}
+    for label, c, lattice in (
+            ("1-best", cfg_dense, False), ("lattice", cfg_dense, True),
+            ("lattice bf16",
+             dataclasses.replace(cfg_dense, records_half=True), True)):
+        search = DenseBeamSearch(task.tree, task.fsa, task.model, c,
+                                 device=device)
+        runs[label] = timed(search, obs, n, lattice)
+        print(f"[9] dense B={B} T={T} {label}: {runs[label][1]:.3f} s, "
+              f"fetched {_fetched(B, T, 32, lattice, c.records_half)} bytes"
+              f" on {card}", flush=True)
+    words = [[r.words for r in runs[k][0]] for k in runs]
+    if not words[0] == words[1] == words[2]:
+        fail("dense words differ between lattice=False, True and bf16")
+    dense, half = runs["lattice"][0], runs["lattice bf16"][0]
+    steps = 0.0
+    for f, h in zip(dense, half):
+        if not (np.array_equal(f.rec_words, h.rec_words)
+                and np.array_equal(f.rec_prevs, h.rec_prevs)):
+            fail("bf16 record words or pointers differ")
+        for a, b in ((f.rec_ams, h.rec_ams), (f.rec_lmss, h.rec_lmss)):
+            step = _bf16_step(a)
+            err = np.abs(b.astype(np.float64) - a)
+            if (err > step).any():
+                fail("bf16 records are not within one bfloat16 step")
+            steps = max(steps, float((err / np.where(step > 0, step, 1)
+                                      ).max()))
+    print(f"[9] dense: words identical in all three; bf16 records within "
+          f"{steps:.3f} bfloat16 steps of float32's; "
+          f"{_graphs(dense, true_words)}", flush=True)
+
+    # (b) the exact engine at phase 8's bench cross-word point
+    cfg_exact = SearchConfig(lm_scale=30.0, duration_scale=3.0,
+                             num_tokens=512, num_records=32,
+                             overflow_tokens=128, we_prewalk=256,
+                             reentry_records=8, reentry_prewalk=8)
+    search = BeamSearch(task.tree, task.fsa, task.model, cfg_exact,
+                        device=device)
+    sub = (obs[:n_exact], n[:n_exact])
+    fast, t_fast = timed(search, *sub, False)
+    exact, t_full = timed(search, *sub, True)
+    if [r.words for r in fast] != [r.words for r in exact]:
+        fail("exact words differ between lattice=False and True")
+    print(f"[9] exact B={n_exact} T={T} (W=512, E=32, overflow 128, prewalk "
+          f"256, re-entry 8 + 8): 1-best {t_fast:.3f} s, lattice "
+          f"{t_full:.3f} s, fetched {_fetched(n_exact, T, 32, False)} and "
+          f"{_fetched(n_exact, T, 32, True)} bytes; "
+          f"{_graphs(exact, true_words)}", flush=True)
+
+    # (d) the CLIs on phase 8's planted LNAs: each engine on the card,
+    # the first utterance on the CPU
+    argv = list(recognize_argv)
+    planted = os.path.join(argv[argv.index("-w") + 1], "planted")
+    root = os.path.join(planted, "lattice")
+
+    def recognize_argv_for(engine, side, count):
+        work = os.path.join(root, f"{engine}-{side}")
+        os.makedirs(os.path.join(work, "lna"))
+        with open(os.path.join(work, "r.recipe"), "w") as f:
+            for u in range(count):
+                shutil.copy(os.path.join(planted, "lna", f"p{u}.lna"),
+                            os.path.join(work, "lna"))
+                f.write(f"audio={work}/p{u}.wav lna=p{u}.lna "
+                        f"utterance=p{u}\n")
+        a = list(argv)
+        a[a.index("-w") + 1] = work
+        a[a.index("-r") + 1] = os.path.join(work, "r.recipe")
+        return work, a + ["--engine", engine, "--lattices", "--nbest", "3",
+                          "--confidence", "--device", dev_of[side]]
+
+    def decode_argv(side, slf):
+        work = os.path.join(root, f"decode-{side}")
+        os.makedirs(work)
+        with open(os.path.join(work, "r.recipe"), "w") as f:
+            f.write(f"lna={planted}/lna/p0.lna utterance=p0\n")
+        return ["-p", argv[argv.index("-b") + 1] + ".ph",
+                "-d", argv[argv.index("--dur") + 1],
+                "-l", argv[argv.index("-l") + 1],
+                "-r", os.path.join(work, "r.recipe"),
+                "--lattice-grammar", slf, "--device", dev_of[side]]
+
+    dev_of = {"card": device.type, "cpu": "cpu"}
+    out, work = {}, {}
+    first = obs[:1].cpu().numpy()
+    jobs = {"dense": ("dense", (task_args, dataclasses.asdict(cfg_dense),
+                                first)),
+            "exact": ("exact", (task_args, dataclasses.asdict(cfg_exact),
+                                first))}
+    for engine in ("exact", "dense"):
+        work[engine, "cpu"], a = recognize_argv_for(engine, "cpu", 1)
+        jobs[engine, "cpu"] = ("aaltoasr_tpu_torch.cli.recognize", a)
+    slf = os.path.join(root, "p0.slf")
+    t_cpu = time.perf_counter()
+    with ProcessPoolExecutor(
+            len(jobs) + 1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(_cpu_job, *v) for k, v in jobs.items()}
+        work["exact", "card"], a = recognize_argv_for("exact", "card",
+                                                      n_exact)
+        out["exact", "card"] = _cli(recognize.main, a)
+        shutil.copy(os.path.join(work["exact", "card"], "lna",
+                                 "p0.lna.slf"), slf)
+        futures["decode"] = pool.submit(
+            _cpu_job, "aaltoasr_tpu_torch.cli.decode",
+            decode_argv("cpu", slf))
+        work["dense", "card"], a = recognize_argv_for("dense", "card",
+                                                      n_exact)
+        out["dense", "card"] = _cli(recognize.main, a)
+        out["decode", "card"] = _cli(decode.main, decode_argv("card", slf))
+        t_card = time.perf_counter() - t_cpu
+        cpu = {k: f.result() for k, f in futures.items()}
+    t_cpu = time.perf_counter() - t_cpu
+    out.update({k: cpu[k] for k in (("exact", "cpu"), ("dense", "cpu"))})
+    out["decode", "cpu"] = cpu["decode"]
+
+    # (c) the first utterance of (a) and of (b), card against CPU
+    for name, card_res in (("dense", dense[0]), ("exact", exact[0])):
+        host = DecodeResult(search=card_res.search, **cpu[name])
+        diff = _lattice_diff(card_res, host)
+        if diff:
+            fail(f"{name} lattice, card against CPU: {diff}")
+        print(f"[9] {name}, card against CPU on the first utterance: "
+              "records, SLF, nbest(5) and confidences agree", flush=True)
+
+    for engine in ("exact", "dense"):
+        for side, count in (("card", n_exact), ("cpu", 1)):
+            print(f"[9] recognize --engine {engine} --lattices --nbest 3 "
+                  f"--confidence --device {dev_of[side]}: {count} planted "
+                  f"utterances in {out[engine, side][2]:.3f} s", flush=True)
+        for ln in out[engine, "card"][0].splitlines():
+            print(f"[9]   {ln}", flush=True)
+        best = [[ln for ln in out[engine, s][0].splitlines()
+                 if not ln.startswith(" ")] for s in ("card", "cpu")]
+        if len(best[0]) != n_exact or best[1] != best[0][:1]:
+            fail(f"recognize --engine {engine} lattice lines, card against "
+                 f"CPU: {best}")
+        slfs = [open(os.path.join(work[engine, s], "lna", "p0.lna.slf")
+                     ).read() for s in ("cpu", "card")]
+        diff = _slf_diff(*slfs)
+        if diff:
+            fail(f"recognize --engine {engine} p0.lna.slf, card against "
+                 f"CPU: {diff}")
+    print("[9] recognize: 1-best lines identical and p0.lna.slf alike, card "
+          "against CPU, for both engines", flush=True)
+    lines = {s: out["decode", s][0].strip() for s in ("card", "cpu")}
+    for s in ("card", "cpu"):
+        print(f"[9] decode --lattice-grammar p0.slf --device {dev_of[s]}: "
+              f"{out['decode', s][2]:.3f} s: {lines[s]}", flush=True)
+    if lines["cpu"] != lines["card"] or not lines["cpu"]:
+        fail(f"decode --lattice-grammar, card against CPU: {lines}")
+    text, _, wall = _cli(lattice_rescore.main, [
+        "-l", argv[argv.index("-n") + 1], "--best", slf])
+    print(f"[9] lattice_rescore --best p0.slf with the task's ARPA: "
+          f"{1e3 * wall:.1f} ms: {text.strip()}", flush=True)
+    print(f"[9] the CPU side ({len(futures)} worker processes, one thread "
+          f"each) took {t_cpu:.1f} s beside {t_card:.1f} s of card runs; "
+          f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -897,7 +1243,7 @@ def main() -> int:
 
     from aaltoasr_tpu_torch.synth import synth_task
     t0 = time.perf_counter()
-    task = synth_task(num_words=1000, order=3, triphone=True, durations=True)
+    task = synth_task(**TASK)
     print(f"[5] task built in {time.perf_counter() - t0:.1f} s: "
           f"{task.tree.num_nodes} tree nodes, {task.fsa.num_states} LM "
           f"states, {task.model.num_states} tied states", flush=True)
@@ -912,6 +1258,7 @@ def main() -> int:
                  "float32")
         adapt = phase_adapt(device, task, workdir)
         phase_exact(device, task, recognize_argv, card=card)
+        phase_lattice(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
 
     kernels = [

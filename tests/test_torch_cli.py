@@ -1,19 +1,31 @@
-"""PyTorch port, CLIs: `phone_probs`, `recognize` (both engines) and
-`decode` on the recognize-CLI test task, against the JAX package's CLIs
-(CPU; the port's CLIs get ``--device cpu``, since they default to the
-GPU)."""
+"""PyTorch port, CLIs: `phone_probs`, `recognize` (both engines, with
+lattices, n-best lists and confidences), `decode` (with an n-gram or a
+lattice grammar) and the host SLF and LM tools on the recognize-CLI test
+task, against the JAX package's CLIs (CPU; the port's CLIs get
+``--device cpu``, since they default to the GPU)."""
 
 import inspect
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from aaltoasr_tpu.cli import arpa2bin as j_arpa2bin
+from aaltoasr_tpu.cli import bin2arpa as j_bin2arpa
+from aaltoasr_tpu.cli import lattice_rescore as j_lattice_rescore
+from aaltoasr_tpu.cli import morph_lattice as j_morph_lattice
 from aaltoasr_tpu.cli.decode import main as j_decode
 from aaltoasr_tpu.cli.phone_probs import main as j_phone_probs
 from aaltoasr_tpu.cli.recognize import main as j_recognize
+from aaltoasr_tpu.decoder.search import BeamSearch as JBeamSearch
+from aaltoasr_tpu.decoder.search import SearchConfig as JConfig
 from aaltoasr_tpu.formats.lna import read_lna
 
+from aaltoasr_tpu_torch.cli import arpa2bin as t_arpa2bin
+from aaltoasr_tpu_torch.cli import bin2arpa as t_bin2arpa
+from aaltoasr_tpu_torch.cli import lattice_rescore as t_lattice_rescore
+from aaltoasr_tpu_torch.cli import morph_lattice as t_morph_lattice
 from aaltoasr_tpu_torch.cli.decode import main as t_decode
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.recognize import main as t_recognize
@@ -24,7 +36,10 @@ from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
 
+from tests.test_decoder import ARPA_TEXT, make_decode_task, synth_obs
+from tests.test_golden_morph_lattice import MORPHS, TEXTS
 from tests.test_recognize_cli import _task
+from tests.test_torch_lattice import BOOSTED, assert_same_slf
 
 # the tests run tiny tensors in several worker processes at once: one
 # intra-op thread each avoids oversubscribing the cores
@@ -176,16 +191,153 @@ def test_decode_matches_reference(tmp_path, capsys):
     assert len(ref) == 3 and got == ref
 
 
-def test_decode_lattice_grammar_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        t_decode(["-p", "m.ph", "-l", "lex", "-r", "recipe",
-                  "--lattice-grammar", "g.slf", "--device", "cpu"])
+# recognize's lattice output: the 1-best line, "  i: words (score)" per
+# n-best entry and "  conf: word(c) ..." (rectool's layout)
+NBEST = re.compile(r"^  (\d+): (.*) \((-?[\d.]+)\)$")
+
+
+def _lattice_output(text):
+    """(1-best lines, n-best [(rank, words, score)], confidences [[(word,
+    c)]]) of recognize's stdout."""
+    best, nbest, conf = [], [], []
+    for ln in text.splitlines():
+        m = NBEST.match(ln)
+        if m:
+            nbest.append((int(m[1]), m[2], float(m[3])))
+        elif ln.startswith("  conf: "):
+            conf.append([(w, float(c)) for w, c in
+                         re.findall(r"(\S+)\(([\d.]+)\)", ln[8:])])
+        elif ln.endswith(")"):
+            best.append(ln)
+    return best, nbest, conf
+
+
+@pytest.mark.parametrize("engine", ["exact", "dense"])
+def test_recognize_lattices_match_reference(tmp_path, capsys, engine):
+    """`--lattices --nbest 3 --confidence`: the 1-best lines identical,
+    the n-best words identical and their scores within one printed step
+    (1e-3) plus rtol 1e-5, the confidences within one printed step
+    (0.01), and each `<lna>.slf` the reference's (node frames and arc
+    keys identical, arc scores within atol 2e-3)."""
+    recipe = _task(tmp_path)
+    extra = ["--engine", engine, "--lattices", "--nbest", "3",
+             "--confidence"]
+    out = {}
+    for side, main, argv in (
+            ("ref", j_recognize, _args(tmp_path, recipe, "ref")),
+            ("port", t_recognize, _port_args(tmp_path, recipe, "port"))):
+        assert main(argv + extra) in (0, None)
+        out[side] = _lattice_output(capsys.readouterr().out)
+    (rb, rn, rc), (gb, gn, gc) = out["ref"], out["port"]
+    assert len(rb) == 3 and gb == rb
+    assert len(rn) >= 3 and [x[:2] for x in gn] == [x[:2] for x in rn]
+    for (_, _, r), (_, _, g) in zip(rn, gn):
+        assert abs(g - r) <= 1e-3 + 1e-5 * abs(r)
+    assert len(rc) == 3 and [[w for w, _ in c] for c in gc] == [
+        [w for w, _ in c] for c in rc]
+    for r, g in zip(rc, gc):
+        np.testing.assert_allclose([c for _, c in g], [c for _, c in r],
+                                   rtol=0, atol=0.01 + 1e-9)
+    for u in range(3):
+        name = f"u{u}.wav.lna.slf"
+        assert_same_slf((tmp_path / "ref" / "lna" / name).read_text(),
+                        (tmp_path / "port" / "lna" / name).read_text())
+
+
+def test_decode_lattice_grammar_raises(tmp_path, capsys):
+    """`decode` exits without -n or --lattice-grammar; with a lattice of
+    the reference's `recognize --lattices` as the grammar it prints the
+    reference's lines."""
+    with pytest.raises(SystemExit):
+        t_decode(["-p", "m.ph", "-l", "lex", "-r", "recipe", "--device",
+                  "cpu"])
+    recipe = _task(tmp_path)
+    assert j_recognize(_args(tmp_path, recipe, "ref")
+                       + ["--engine", "dense", "--lattices"]) == 0
+    capsys.readouterr()
+    lna = tmp_path / "ref" / "lna"
+    lna_recipe = tmp_path / "lna.recipe"
+    lna_recipe.write_text("".join(
+        f"lna={lna / f'u{u}.wav.lna'} utterance=u{u}\n" for u in range(3)))
+    argv = ["-p", str(tmp_path / "am.ph"), "-l", str(tmp_path / "lex.txt"),
+            "-r", str(lna_recipe), "--lm-scale", "2",
+            "--duration-scale", "0",
+            "--lattice-grammar", str(lna / "u0.wav.lna.slf")]
+    ref = _lines(capsys, j_decode, argv)
+    got = _lines(capsys, t_decode, argv + ["--device", "cpu"])
+    assert len(ref) == 3 and got == ref
+
+
+MORPH_ARPA = ("\\data\\\nngram 1=7\n\n\\1-grams:\n"
+              "-0.5 <s>\n-0.5 </s>\n-0.5 <w>\n"
+              "-0.5 au\n-0.9 to\n-0.5 ta\n-0.9 lo\n\n\\end\\\n")
+MORPH_SLF = ("VERSION=1.0\nlmscale=30.0 wdpenalty=0.0\nN=3 L=3\n"
+             "I=0 t=0\nI=1 t=10\nI=2 t=20\n"
+             "J=0 S=0 E=1 W=auto a=-100.0 l=-1.0\n"
+             "J=1 S=1 E=2 W=talo a=-120.0 l=-2.0\n"
+             "J=2 S=0 E=2 W=xyz a=-300.0 l=-4.0\n")
+
+# each tool's arguments, relative to the test's directory; outputs go to
+# "out" (or stdout)
+TOOLS = {
+    "lattice_rescore": ["-l", "lm.arpa", "-o", "out", "in.slf"],
+    "lattice_rescore_stdout_lm_scale": ["-l", "lm.arpa", "--lm-scale", "4",
+                                        "in.slf"],
+    "lattice_rescore_best_boosted": ["-l", "boosted.arpa", "--best",
+                                     "in.slf"],
+    "lattice_rescore_mix": ["-l", "lm.arpa", "--mix", "boosted.arpa", "0.3",
+                            "--best", "-o", "out", "in.slf"],
+    "lattice_rescore_binary": ["-b", "-l", "lm.bin", "-o", "out", "in.slf"],
+    "morph_lattice_lm": ["--lm", "morph.arpa", "-o", "out", "morph.slf"],
+    "morph_lattice_lm_no_boundary": ["--lm", "morph.arpa", "-w", "",
+                                     "morph.slf"],
+    "morph_lattice_morphset": ["--morphset", "morphs", "-o", "out",
+                               "corpus.txt"],
+    "arpa2bin": ["boosted.arpa", "out"],
+    "arpa2bin_interpolated": ["-i", "lm.arpa", "out"],
+    "bin2arpa": ["lm.bin", "out"],
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_lattice_tools_match_reference(tmp_path, capsys, monkeypatch, tool):
+    """The host tools on the same files write the reference's bytes."""
+    model, tree, fsa = make_decode_task()
+    res = JBeamSearch(tree, fsa, model, JConfig(
+        num_tokens=64, num_records=8, beam=1e9, lm_scale=1.0)).decode(
+            synth_obs(tree, model, ["_", "a", "b", "b", "a", "_"],
+                      noise=1.0, seed=4))
+    res.word_graph().write_slf(str(tmp_path / "in.slf"))
+    (tmp_path / "lm.arpa").write_text(ARPA_TEXT)
+    (tmp_path / "boosted.arpa").write_text(BOOSTED)
+    (tmp_path / "morph.arpa").write_text(MORPH_ARPA)
+    (tmp_path / "morph.slf").write_text(MORPH_SLF)
+    (tmp_path / "morphs").write_text("\n".join(MORPHS) + "\n")
+    (tmp_path / "corpus.txt").write_text("".join(TEXTS))
+    assert j_arpa2bin.main([str(tmp_path / "lm.arpa"),
+                            str(tmp_path / "lm.bin")]) == 0
+    monkeypatch.chdir(tmp_path)
+    name = next(n for n in ("lattice_rescore", "morph_lattice", "arpa2bin",
+                            "bin2arpa") if tool.startswith(n))
+    outputs = []
+    for mod in {"lattice_rescore": (j_lattice_rescore, t_lattice_rescore),
+                "morph_lattice": (j_morph_lattice, t_morph_lattice),
+                "arpa2bin": (j_arpa2bin, t_arpa2bin),
+                "bin2arpa": (j_bin2arpa, t_bin2arpa)}[name]:
+        assert mod.main(TOOLS[tool]) in (0, None)
+        out = tmp_path / "out"
+        outputs.append((capsys.readouterr().out,
+                        out.read_bytes() if out.exists() else None))
+        if out.exists():
+            out.unlink()
+    assert outputs[1] == outputs[0]
+    assert outputs[0][0] or outputs[0][1]
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine", "exact", "--lattices"], "lattices"),
+    (["--engine", "exact", "--stateseg"], "state segmentation"),
     (["--lookahead", "3"], "item 4"),        # context lookahead
-    (["--engine", "dense", "--lattices"], "lattices"),
+    (["--engine", "dense", "--stateseg"], "state segmentation"),
     (["--engine", "dense", "--adapt", "vtln"], "adaptation"),
 ])
 def test_unported_options_raise(tmp_path, extra, match):

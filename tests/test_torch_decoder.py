@@ -195,9 +195,25 @@ class TestDenseDecode:
             assert g.log_prob == pytest.approx(r.log_prob, rel=1e-4)
 
     def test_lattice_not_ported(self):
+        """lattice=False leaves the records on the device (the result
+        has none, and no word graph); lattice=True brings the
+        reference's records, scores within rtol 1e-5, atol 1e-3."""
         model, tree, fsa = make_decode_task()
+        cfg = JConfig(num_records=16, beam=1e9, lm_scale=1.0)
         port = DenseBeamSearch(convert.prefix_tree(tree),
                                convert.ngram_fsa(fsa),
-                               convert.hmm_model(model), device="cpu")
-        with pytest.raises(NotImplementedError, match="lattice"):
-            port.decode(np.zeros((5, 4), np.float32), lattice=True)
+                               convert.hmm_model(model),
+                               convert.search_config(cfg), device="cpu")
+        obs = np.array(synth_obs(tree, model, ["a", "b", "c", "a"], seed=2))
+        fast = port.decode(obs, lattice=False)
+        assert fast.rec_words is None and fast.rec_ams is None
+        with pytest.raises(RuntimeError, match="lattice=False"):
+            fast.word_graph()
+        ref = JDense(tree, fsa, model, cfg).decode(obs, lattice=True)
+        got = port.decode(obs, lattice=True)
+        assert got.words == fast.words == ref.words
+        np.testing.assert_array_equal(got.rec_words, ref.rec_words)
+        np.testing.assert_array_equal(got.rec_prevs, ref.rec_prevs)
+        for f in ("rec_ams", "rec_lmss"):
+            np.testing.assert_allclose(getattr(got, f), getattr(ref, f),
+                                       rtol=1e-5, atol=1e-3)

@@ -377,8 +377,23 @@ def test_later_options_raise(kw, match):
 
 
 def test_word_graph_names_the_lattice_item():
+    """`word_graph` on a lattice=False result raises naming the flag; on
+    a lattice=True result it is the reference's graph (the same nodes
+    and arcs, scores within atol 2e-3)."""
     model, tree, fsa = make_decode_task()
-    res = port_search(tree, fsa, model, JConfig(num_tokens=16)).decode(
-        np.array(synth_obs(tree, model, ["a", "b"], seed=0)))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        res.word_graph()
+    cfg = JConfig(num_tokens=16, lm_scale=2.0)
+    obs = np.array(synth_obs(tree, model, ["a", "b", "b", "a"], seed=0))
+    port = port_search(tree, fsa, model, cfg)
+    with pytest.raises(RuntimeError, match="lattice=False"):
+        port.decode(obs, lattice=False).word_graph()
+    want = JBeamSearch(tree, fsa, model, cfg).decode(obs).word_graph()
+    got = port.decode(obs).word_graph()
+    assert [(n.index, n.frame) for n in got.nodes] == [
+        (n.index, n.frame) for n in want.nodes]
+    assert [(a.source, a.target, a.word) for a in got.arcs] == [
+        (a.source, a.target, a.word) for a in want.arcs]
+    for f in ("am", "lm"):
+        np.testing.assert_allclose([getattr(a, f) for a in got.arcs],
+                                   [getattr(a, f) for a in want.arcs],
+                                   rtol=0, atol=2e-3)
+    assert (got.start_node, got.end_node) == (want.start_node, want.end_node)

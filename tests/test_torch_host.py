@@ -145,16 +145,67 @@ class TestSynth:
         assert len(TRecipe.read(paths["recipe"])) == 2
 
 
+# the lattice entry points, called once each (their imports inside
+# functions run only then): the host tools, the lattice grammar and its
+# device walk, a word graph and its n-best and confusion network, and
+# the Toolbox's binary LM and grammar reads
+LATTICE_CALLS = """
+import contextlib, io, os, tempfile
+import numpy as np, torch
+from aaltoasr_tpu_torch import synth
+from aaltoasr_tpu_torch.cli import (arpa2bin, bin2arpa, lattice_rescore,
+                                    morph_lattice)
+from aaltoasr_tpu_torch.decoder.ngram import lm_walk_device
+from aaltoasr_tpu_torch.decoder.search import SearchConfig
+from aaltoasr_tpu_torch.decoder.slf import SlfLattice, lattice_grammar
+from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
+from aaltoasr_tpu_torch.decoder.wordgraph import WordGraph, confusion_network
+from aaltoasr_tpu_torch.formats.model_io import write_model
+ARPA = ("\\\\data\\\\\\nngram 1=4\\n\\n\\\\1-grams:\\n-0.5 <s>\\n"
+        "-0.5 </s>\\n-0.3 au\\n-0.4 to\\n\\n\\\\end\\\\\\n")
+SLF = ("VERSION=1.0\\nN=3 L=2\\nI=0 t=0\\nI=1 t=5\\nI=2 t=9\\n"
+       "J=0 S=0 E=1 W=au a=-5.0 l=-1.0\\nJ=1 S=1 E=2 W=to a=-4.0 l=-1.0\\n")
+d = tempfile.mkdtemp()
+p = lambda n: os.path.join(d, n)
+for n, text in (("lm.arpa", ARPA), ("in.slf", SLF), ("morphs", "au\\nto\\n"),
+                ("text", "auto to\\n")):
+    open(p(n), "w").write(text)
+with contextlib.redirect_stdout(io.StringIO()):
+    arpa2bin.main([p("lm.arpa"), p("lm.bin")])
+    bin2arpa.main([p("lm.bin"), p("back.arpa")])
+    lattice_rescore.main(["-l", p("lm.arpa"), "--mix", p("back.arpa"), "0.5",
+                          "--best", p("in.slf")])
+    morph_lattice.main(["--lm", p("lm.arpa"), "-w", "", p("in.slf")])
+    morph_lattice.main(["--morphset", p("morphs"), p("text")])
+g = lattice_grammar(SlfLattice.read(p("in.slf")))
+nxt, sc = lm_walk_device(g.device_tables(), g.order, torch.tensor([0, 1]),
+                         torch.tensor([0, 1]))
+assert sc.tolist() == [0.0, 0.0]
+wg = WordGraph.from_records(
+    ["au", "to"], SearchConfig(), np.array([[0, -1], [1, -1]]),
+    np.array([[-1, -1], [0, -1]]), np.array([[-5.0, 0], [-9.0, 0]]),
+    np.zeros((2, 2)), 2, -9.5, 0.0)
+assert wg.nbest(2)[0][0] == ["au", "to"] and confusion_network(wg)
+wg.write_slf(p("wg.slf"))
+write_model(p("m"), synth.random_model(G=4, S=2, D=3, K=1))
+t = Toolbox(p("m.ph"), device="cpu")
+t.ngram_read(p("lm.bin"), binary=True)
+t.htk_lattice_grammar_read(p("wg.slf"))
+assert t.lm.vocab == ["au", "to"]
+"""
+
+
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports without
-    pulling jax or the JAX package into the process."""
+    pulling jax or the JAX package into the process, nor does a call of
+    each lattice entry point."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import aaltoasr_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'aaltoasr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke\n" + LATTICE_CALLS +
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aaltoasr_tpu' or m.startswith('aaltoasr_tpu.')]\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
@@ -163,5 +214,9 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert "aaltoasr_tpu_torch.decoder.search_dense" in res["modules"]
-    assert len(res["modules"]) >= 25
+    for m in ("decoder.search_dense", "decoder.wordgraph", "decoder.slf",
+              "decoder.intergram", "decoder.morpheus", "decoder.morphset",
+              "formats.treegram_bin", "cli.lattice_rescore",
+              "cli.morph_lattice", "cli.arpa2bin", "cli.bin2arpa"):
+        assert "aaltoasr_tpu_torch." + m in res["modules"]
+    assert len(res["modules"]) >= 35
