@@ -35,8 +35,9 @@ def main(argv=None) -> int:
     p.add_argument("--lm-scale", type=float, default=30.0)
     p.add_argument("--duration-scale", type=float, default=3.0)
     p.add_argument("--insertion-penalty", type=float, default=0.0)
-    p.add_argument("--lookahead", type=int, default=0, choices=[0, 1, 2],
-                   help="LM lookahead mode (1 = unigram, 2 = bigram)")
+    p.add_argument("--lookahead", type=int, default=0, choices=[0, 1, 2, 3],
+                   help="LM lookahead mode (1 = unigram, 2 = bigram, 3 = "
+                        "context)")
     p.add_argument("--lookahead-ngram",
                    help="separate ARPA LM for lookahead scores")
     p.add_argument("-B", "--batch", type=int, default=0)

@@ -8,9 +8,9 @@ through `Toolbox` with 1-best output, and on request SLF lattices
 exact engine one utterance at a time, or the dense engine in batches;
 ``--engine auto`` (the default) picks exact below 100k tree nodes.  It
 runs on ``--device`` (default ``cuda``; with no GPU it raises unless
-``--device cpu`` is given).  Adaptation, state segmentations and
-context lookahead are not ported yet and raise NotImplementedError
-naming the ROADMAP item that brings them.
+``--device cpu`` is given).  Adaptation and state segmentations are not
+ported yet and raise NotImplementedError naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import sys
 
 import numpy as np
 
-from aaltoasr_tpu_torch.decoder.search import EXACT_REST_ITEM
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
 from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.decoder.wordgraph import confusion_network
@@ -36,7 +35,8 @@ AUTO_ENGINE_NODE_THRESHOLD = 100_000
 _LATER = {
     "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
              "adaptation)",
-    "stateseg": f"state segmentation is not ported yet ({EXACT_REST_ITEM})",
+    "stateseg": "state segmentation is not ported yet (ROADMAP queue 1 "
+                "item 5: training, whose HMM networks it aligns on)",
 }
 
 
@@ -117,7 +117,7 @@ def main(argv=None) -> int:
                         "top-N cross-word entry nodes; 0 = all")
     p.add_argument("--lookahead", type=int, default=0,
                    help="LM lookahead: 0 off, 1 unigram table, 2 bigram "
-                        "table (3, context lookahead, is not ported)")
+                        "table, 3 context (>= trigram)")
     p.add_argument("--lookahead-ngram", default=None,
                    help="separate (smaller) ARPA for lookahead scores")
     p.add_argument("--split-multiwords", action="store_true",

@@ -15,8 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from aaltoasr_tpu_torch.decoder.classes import WordClasses
 from aaltoasr_tpu_torch.decoder.lexicon import PrefixTree
-from aaltoasr_tpu_torch.decoder.ngram import NGramFsa
+from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa, NGramFsa
 from aaltoasr_tpu_torch.decoder.search import SearchConfig
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, HmmPhone
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
@@ -48,6 +49,15 @@ def prefix_tree(ref) -> PrefixTree:
 
 def ngram_fsa(ref) -> NGramFsa:
     return _copy_fields(NGramFsa, ref)
+
+
+def inter_ngram_fsa(ref) -> InterNGramFsa:
+    """A reference `InterNGramFsa`: its members and coefficients."""
+    return InterNGramFsa([ngram_fsa(m) for m in ref.members], ref.coeffs)
+
+
+def word_classes(ref) -> WordClasses:
+    return WordClasses(membership=dict(ref.membership))
 
 
 def search_config(ref) -> SearchConfig:

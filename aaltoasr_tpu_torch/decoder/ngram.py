@@ -12,11 +12,20 @@ and retries from suffix(h).
 resolves with one dense gather; other states look (state, word) up in a
 bucketed hash table whose bucket ids are bit-identical to the
 reference's (its uint32 hash is computed here in int64 under the same
-mask).  Interpolated LMs (`InterNGramFsa`) are not ported yet.
+mask).
+
+`InterNGramFsa` interpolates K member FSAs over a union vocabulary
+(`lm_walk_device_multi` walks every member and mixes the scores in the
+probability domain).  The engines carry its K member states as one int64
+mixed-radix code, member 0 the most significant digit
+(`InterNGramFsa.encode`/`decode`): a code orders as the tuple of member
+states does, so the recombination key (node, code) keeps the reference's
+lexicographic (node, state 0, ..., state K-1) order.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -291,3 +300,174 @@ def lm_walk_device(tables: dict, order: int, state: torch.Tensor,
         score = torch.where(done, score, score + bo)
         state = torch.where(done, state, bnxt)
     return next_state, score
+
+
+def lm_walk_device_multi(lm, tables_list: list, states: torch.Tensor,
+                         word: torch.Tensor):
+    """Joint walk of the K member FSAs of ``lm`` (`InterNGramFsa`; the
+    reference's InterTreeGram, `decoder/src/InterTreeGram.hh:41`):
+    (states [..., K], word [...]) -> (next [..., K], score), the score
+    the probability-domain mixture of the members' scores (NEG_INF where
+    every member is dead)."""
+    nxts, scores = [], []
+    for k, tab in enumerate(tables_list):
+        nxt, sc = lm_walk_device(tab, lm.members[k].order, states[..., k],
+                                 word)
+        nxts.append(nxt)
+        scores.append(lm.log_coeffs[k] + sc)
+    stacked = torch.stack(scores).clamp(min=NEG_INF)
+    # logsumexp as the reference computes it: max + log(sum(exp(x - max)))
+    mx = stacked.max(dim=0).values
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    score = torch.log(torch.exp(stacked - mx).sum(dim=0)) + mx
+    score = torch.where((stacked <= NEG_INF / 2).all(dim=0),
+                        torch.full_like(score, NEG_INF), score)
+    return torch.stack(nxts, dim=-1), score
+
+
+class InterNGramFsa:
+    """Linear interpolation of K backoff FSAs over a union vocabulary
+    (`decoder/src/InterTreeGram.{hh,cc}`): decoding walks every member
+    and mixes in the probability domain.  A state is K member states."""
+
+    def __init__(self, members: list, coeffs: list):
+        if len(members) != len(coeffs):
+            raise ValueError(
+                "There must be as many interpolation coeffs as LMs")
+        if not 0.99 <= sum(coeffs) <= 1.01:
+            raise ValueError("Interpolation coeffs must sum to 1")
+        self.members = list(members)
+        self.coeffs = [float(c) for c in coeffs]
+        self.log_coeffs = [float(np.log(max(c, 1e-30))) for c in coeffs]
+        self.order = max(m.order for m in members)
+        # members are built over the union vocabulary (from_arpas)
+        self.num_words = members[0].num_words
+        self.word_index = dict(members[0].word_index)
+        # mixed-radix state codes: member k's digit has weight
+        # prod(num_states of members k+1..K-1)
+        self.radix = []
+        w = 1
+        for m in reversed(self.members):
+            self.radix.insert(0, w)
+            w *= m.num_states
+        self.num_codes = w
+        if self.num_codes >= 2 ** 62:
+            raise ValueError(
+                "the product of the member LMs' state counts does not fit "
+                "one int64 state code")
+
+    @property
+    def vocab(self):
+        return self.members[0].vocab
+
+    @classmethod
+    def from_arpas(cls, arpas: list, coeffs: list) -> "InterNGramFsa":
+        """Remap every member onto the union vocabulary, then compile
+        each to its FSA."""
+        union: list = []
+        index: dict = {}
+        for lm in arpas:
+            for w in lm.vocab:
+                if w not in index:
+                    index[w] = len(union)
+                    union.append(w)
+        members = []
+        for lm in arpas:
+            remap = np.asarray([index[w] for w in lm.vocab], dtype=np.int64)
+
+            def rekey(d):
+                return {tuple(int(remap[w]) for w in k): v
+                        for k, v in d.items()}
+
+            members.append(NGramFsa.from_arpa(ArpaLM(
+                order=lm.order, vocab=list(union), word_index=dict(index),
+                ngrams=[rekey(g) for g in lm.ngrams])))
+        return cls(members, coeffs)
+
+    def initial_state(self, sentence_start: str = "<s>") -> np.ndarray:
+        return np.asarray(
+            [m.initial_state(sentence_start) for m in self.members],
+            dtype=np.int32)
+
+    def member_tables(self, device: torch.device | str = "cpu") -> list:
+        return [m.device_tables(device) for m in self.members]
+
+    def walk(self, states, word: int):
+        """Host walk: (member states, word) -> (next states, score)."""
+        nxts, scs = [], []
+        for k, m in enumerate(self.members):
+            n, sc = m.walk(int(states[k]), word)
+            nxts.append(n)
+            scs.append(self.log_coeffs[k] + sc)
+        best = max(scs)
+        if best <= NEG_INF / 2:
+            return nxts, NEG_INF
+        return nxts, best + math.log(sum(math.exp(s - best) for s in scs))
+
+    # -- mixed-radix state codes -------------------------------------------
+    def encode(self, states):
+        """[..., K] member states (tensor or sequence) -> their codes."""
+        if not isinstance(states, torch.Tensor):
+            return sum(int(s) * r for s, r in zip(states, self.radix))
+        code = states[..., 0].to(torch.int64) * self.radix[0]
+        for k in range(1, len(self.members)):
+            code = code + states[..., k].to(torch.int64) * self.radix[k]
+        return code
+
+    def decode(self, code: torch.Tensor) -> torch.Tensor:
+        """[...] codes -> [..., K] member states."""
+        return torch.stack([(code // r) % m.num_states for r, m in
+                            zip(self.radix, self.members)], dim=-1)
+
+
+# -- LM states as the engines carry them: one int64 code per hypothesis ---
+def lm_members(lm) -> list:
+    return lm.members if isinstance(lm, InterNGramFsa) else [lm]
+
+
+def lm_num_codes(lm) -> int:
+    return lm.num_codes if isinstance(lm, InterNGramFsa) else lm.num_states
+
+
+def lm_tables(lm, device) -> dict | list:
+    """The device tables `walk_codes` takes."""
+    if isinstance(lm, InterNGramFsa):
+        return lm.member_tables(device)
+    return lm.device_tables(device)
+
+
+def initial_code(lm, sentence_start: str = "<s>") -> int:
+    st = lm.initial_state(sentence_start)
+    return lm.encode(st) if isinstance(lm, InterNGramFsa) else int(st)
+
+
+def reset_code(lm, word: str) -> int:
+    """The code after the sentence start and ``word`` in every member
+    (members without ``word`` stay at their start), scores discarded:
+    the morph-mode sentence-end reset (TokenPassSearch.cc:903-919)."""
+    states = []
+    for m in lm_members(lm):
+        st = m.initial_state()
+        w = m.word_index.get(word, -1)
+        if w >= 0:
+            st, _ = m.walk(st, w)
+        states.append(st)
+    if isinstance(lm, InterNGramFsa):
+        return lm.encode(states)
+    return int(states[0])
+
+
+def member0_states(lm, codes: torch.Tensor) -> torch.Tensor:
+    """The first member's state of each code."""
+    if isinstance(lm, InterNGramFsa):
+        return codes // lm.radix[0]
+    return codes
+
+
+def walk_codes(lm, tables, codes: torch.Tensor, word: torch.Tensor):
+    """(codes [...], word [...]) -> (next codes, score): `lm_walk_device`,
+    or for an interpolated LM the members' joint walk."""
+    if not isinstance(lm, InterNGramFsa):
+        return lm_walk_device(tables, lm.order, codes, word)
+    nxt, sc = lm_walk_device_multi(lm, tables, lm.decode(codes), word)
+    return lm.encode(nxt), sc

@@ -28,7 +28,10 @@ on the device until it ends, then one fetch brings them to the host for
 the 1-best traceback.  With ``lattice`` (the default) the records also
 carry each word's cumulative am and lm scores, for
 `DecodeResult.word_graph`; ``records_half`` sends those scores as
-bfloat16.  Interpolated LMs are not ported yet.
+bfloat16.  An interpolated LM (`InterNGramFsa`) rides as one mixed-radix
+state code per node, as in the exact engine, and word classes
+(`WordClasses`) adjust the LM words and pronunciation scores of a copy
+of the tree's tables.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ import torch
 
 from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
-from aaltoasr_tpu_torch.decoder.ngram import NGramFsa, lm_walk_device
+from aaltoasr_tpu_torch.decoder.ngram import (
+    initial_code, lm_members, lm_tables, member0_states, reset_code,
+    walk_codes)
 from aaltoasr_tpu_torch.decoder.search import (
-    EXACT_REST_ITEM, DecodeResult, SearchConfig,
+    DecodeResult, SearchConfig,
     expand_word_boundaries, multiword_components, top_k, traceback,
     walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
@@ -108,14 +113,10 @@ class DenseBeamSearch:
     _traceback_cap = 100000     # word-chain safety bound (per utterance
                                 # min(cap, T): at most one word a frame)
 
-    def __init__(self, tree: PrefixTree, lm: NGramFsa, model,
-                 config: SearchConfig = SearchConfig(),
+    def __init__(self, tree: PrefixTree, lm, model,
+                 config: SearchConfig = SearchConfig(), word_classes=None,
                  device: torch.device | str = "cuda"):
         self.device = resolve_device(device)
-        if not isinstance(lm, NGramFsa):
-            raise NotImplementedError(
-                "interpolated LMs are not ported yet "
-                f"({EXACT_REST_ITEM})")
         if config.num_records < REENTRY_WIDTH:
             raise ValueError(f"num_records must be >= {REENTRY_WIDTH}")
         self.tree = tree
@@ -160,18 +161,28 @@ class DenseBeamSearch:
             we_n = np.concatenate([we_n, np.zeros(pad, dtype=we_n.dtype)])
             we_h = np.concatenate([we_h, np.zeros(pad, dtype=we_h.dtype)])
         n_real = len(we_n) - max(pad, 0)
+        lm_names = (word_classes.lm_word_names(tree.vocab)
+                    if word_classes is not None else tree.vocab)
+        we_pron = (word_classes.pron_logp(tree) if word_classes is not None
+                   else tree.we_pron_logp)
         mw_comp, lm_ids, _, _ = multiword_components(
-            tree.vocab, lm, config.split_multiwords)
+            lm_names, lm, config.split_multiwords)
         self._mw_cmax = mw_comp.shape[1]
         we_word = tree.we_word[we_n, we_h]
         slot_lmid = lm_ids[np.maximum(we_word, 0)]
-        # static unigram of each slot's LM word: with the carried backoff
-        # weight, the cheap rank estimate of a word end
-        row = np.full(lm.num_words, LOG_ZERO, np.float32)
-        lo0, hi0 = int(lm.state_first[0]), int(lm.state_first[1])
-        row[lm.trans_word[lo0:hi0]] = lm.trans_prob[lo0:hi0]
-        uni_w = np.maximum(row[np.maximum(slot_lmid, 0)].astype(np.float64),
-                           LOG_ZERO).astype(np.float32)
+        members = lm_members(lm)
+        self._K = len(members)
+        self._log_coeffs = lm.log_coeffs if self._K > 1 else [0.0]
+        # static (interpolated) unigram of each slot's LM word: with the
+        # carried backoff weight, the cheap rank estimate of a word end
+        uni_mix = np.full(len(we_n), -np.inf, np.float64)
+        for m, lw in zip(members, self._log_coeffs):
+            row = np.full(m.num_words, LOG_ZERO, np.float32)
+            lo0, hi0 = int(m.state_first[0]), int(m.state_first[1])
+            row[m.trans_word[lo0:hi0]] = m.trans_prob[lo0:hi0]
+            uni_mix = np.logaddexp(uni_mix,
+                                   lw + row[np.maximum(slot_lmid, 0)])
+        uni_w = np.maximum(uni_mix, LOG_ZERO).astype(np.float32)
         we_skip = tree.we_skip_lm[we_n, we_h]
         we_exit = np.where(np.arange(len(we_n)) < n_real,
                            tree.we_exit_logp[we_n, we_h], LOG_ZERO)
@@ -210,7 +221,7 @@ class DenseBeamSearch:
             "we_uni": dev(uni_w),
             "we_pair": dev(tree.we_pair[we_n, we_h], i64),
             "we_exit": dev(we_exit.astype(np.float32)),
-            "we_pron": dev(tree.we_pron_logp[we_n, we_h]),
+            "we_pron": dev(we_pron[we_n, we_h]),
             "we_skip": dev(we_skip),
             "we_skip_any": dev(we_skip | (we_word < 0)),
             "fin_base_ok": dev(fin_base_ok),
@@ -233,24 +244,31 @@ class DenseBeamSearch:
                         if config.word_boundary else -1)
         self._end_tid = tree.word_index.get(config.sentence_end, -1)
         if self._wb_tid >= 0:
-            wbl = lm.word_index.get(config.word_boundary, -1)
-            t["is_wb_state"] = dev(lm.states_ending_with(wbl) if wbl >= 0
-                                   else np.zeros(lm.num_states, bool))
-            st = lm.initial_state()
-            if wbl >= 0:
-                st, _ = lm.walk(st, wbl)
-            self._wb_reset = int(st)
+            m0 = members[0]
+            wbl = m0.word_index.get(config.word_boundary, -1)
+            t["is_wb_state"] = dev(m0.states_ending_with(wbl) if wbl >= 0
+                                   else np.zeros(m0.num_states, bool))
+            self._wb_reset = reset_code(lm, config.word_boundary)
         self.t = t
-        self.lm_tables = lm.device_tables(self.device)
+        self.lm_tables = lm_tables(lm, self.device)
 
     # -- pieces of the step ----------------------------------------------
     def _walk(self, states, word):
-        return lm_walk_device(self.lm_tables, self.lm.order, states, word)
+        return walk_codes(self.lm, self.lm_tables, states, word)
 
     def _bo_est(self, states):
-        """min(bo_weight[state], 0): the carried backoff payload of the
-        word-end rank estimate."""
-        return torch.clamp(self.lm_tables["bo_weight"][states], max=0.0)
+        """The carried backoff payload of the word-end rank estimate:
+        min(bo_weight[state], 0), and for an interpolated LM the max over
+        members of log coeff + that."""
+        if self._K == 1:
+            return torch.clamp(self.lm_tables["bo_weight"][states], max=0.0)
+        st = self.lm.decode(states)
+        est = None
+        for k, tab in enumerate(self.lm_tables):
+            e = self._log_coeffs[k] + torch.clamp(
+                tab["bo_weight"][st[..., k]], max=0.0)
+            est = e if est is None else torch.maximum(est, e)
+        return est
 
     def _dur_bonus(self, dur, prefix=""):
         """Gamma duration log-prob for staying ``dur + 1`` frames, from
@@ -352,7 +370,7 @@ class DenseBeamSearch:
                  + torch.where(c_skip, 0.0, ins))
         c_alive = c_ok & (lm_score > LOG_ZERO / 2)
         if self._wb_tid >= 0:
-            prev_wb = t["is_wb_state"][c_state]
+            prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
             c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
             if self._end_tid >= 0:
                 lm_next = torch.where(c_word == self._end_tid,
@@ -465,7 +483,7 @@ class DenseBeamSearch:
                 self._walk, st_w,
                 t["mw_comp"][w_word.clamp(min=0)])
         if self._wb_tid >= 0:
-            prev_wb = t["is_wb_state"][st_w]
+            prev_wb = t["is_wb_state"][member0_states(self.lm, st_w)]
             w_ok = w_ok & ~((w_word == self._wb_tid) & prev_wb)
             if self._end_tid >= 0:
                 nxt_w = torch.where(w_word == self._end_tid, self._wb_reset,
@@ -572,8 +590,8 @@ class DenseBeamSearch:
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
         n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,
                             device=self.device)
-        lm_init = int(self.lm.initial_state(sentence_start))
-        finals, rec_ints, rec_floats = self._decode(obs, n, lm_init, lattice)
+        finals, rec_ints, rec_floats = self._decode(
+            obs, n, initial_code(self.lm, sentence_start), lattice)
         finals = [f.cpu().numpy() for f in finals]
         recs = rec_ints.cpu().numpy()
         out = []

@@ -80,8 +80,7 @@ class GmmScorer:
         G, D = means.shape
         Gp = _round_up(G, _PAD_GAUSSIANS)
         has_sub = bool(model.pcgmm_params or model.scgmm_params)
-        full_cov = (model.cov_type == "full_cov"
-                    or "full" in model.gauss_kind or has_sub)
+        full_cov = scores_full_cov(model)
 
         if full_cov:
             # exponential form over phi(x) = [vec(x x^T), x]:
@@ -267,6 +266,14 @@ class GmmScorer:
         (PPToolbox::generate_to_fd, `aku/PhoneProbsToolbox.cc:93-105`)."""
         ll = self.state_log_likelihoods(features)[..., :self.num_states]
         return lna_normalize(ll)
+
+
+def scores_full_cov(model: HmmModel) -> bool:
+    """Whether `GmmScorer.from_model` scores ``model`` in the
+    full-covariance form (full or subspace Gaussians), which the fused
+    kernel does not take."""
+    return bool(model.cov_type == "full_cov" or "full" in model.gauss_kind
+                or model.pcgmm_params or model.scgmm_params)
 
 
 def _spd_precision(cov: np.ndarray):

@@ -58,7 +58,25 @@ Phases, each printing a summary line:
    --confidence` with either engine on phase 8's planted LNAs, the first
    on the CPU too (1-best lines identical, SLF files alike);
    `decode --lattice-grammar` of the first SLF on the card and the CPU
-   (identical lines) and `lattice_rescore --best` of it, timed.
+   (identical lines) and `lattice_rescore --best` of it, timed;
+10. streaming and the rest of the exact engine's options, on the same
+   task: phase 8's first 2 planted utterances pushed to
+   `StreamingDecoder` in 32-frame blocks at the default knobs (words
+   identical to `BeamSearch.decode_batch`, `partial()` equal to
+   `result().words` every 64 frames; ms per block, per `partial()` and
+   for `result()`); `decode_stream` on 2 of phase 5's WAVs written as raw
+   s16le, with the task's model placed on their features and no
+   durations (x real time,
+   K1 and K2 launches per block, both kernels at the block shape against
+   their plain versions, `features_range` with the fused frontend over a
+   growing buffer against the plain features), the first also on the CPU
+   (words alike, or the difference traced to the fused scoring's near
+   ties); then each option (context lookahead, `reentry_topk`,
+   `reentry_preselect`, the five pruning beams, a two-member
+   `InterNGramFsa`, word classes) at phase 8's bench point on 4 planted
+   utterances of 500 frames (planted words checked), the first on the CPU
+   too (words and records identical), timed.  Its CPU side runs in
+   spawned worker processes beside the card's runs.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -269,7 +287,7 @@ def phase_mfcc(device, n_utts=128, seconds=8.0):
             "utt_ms": res["utt"][1], "utt_plain_ms": res["utt"][2]}
 
 
-def _gmm_shape(device, x, model, label, lna=False):
+def _gmm_shape(device, x, model, label, lna=False, tag="[4]"):
     """K1 on features `x` against `model`: checked against its plain
     version, timed beside it and beside the cuBLAS product of the same
     shape.  Returns (max |d|, kernel ms, plain ms, product ms, bound)."""
@@ -311,7 +329,7 @@ def _gmm_shape(device, x, model, label, lna=False):
     flops = 2.0 * (2 * D + 1) * K * T * Spp
     # x read, the slabs' 2D+1 live rows read, the result written
     b = bound(flops, 4.0 * (T * D + K * (2 * D + 1) * Spp + T * Spp))
-    print(f"[4] gmm_state_ll {label} T={T} S={S} (Spp {Spp}) K={K} D={D}: "
+    print(f"{tag} gmm_state_ll {label} T={T} S={S} (Spp {Spp}) K={K} D={D}: "
           f"max|d| {err:.3e} (atol 1e-3), padded states <= -1e29: {pad_ok}"
           f"{agree}; kernel {ms:.4f} ms ({flops * 1e-9:.1f} GFLOP, "
           f"{flops / ms * 1e-9:.1f} TFLOP/s; bound {b[0]:.4f} ms by "
@@ -991,23 +1009,75 @@ _RESULT_FIELDS = ("final_ptr", "log_prob", "final_am", "final_lms",
                   "final_word")
 
 
+# the tasks a worker process has built, by their `synth_task` arguments
+_TASKS: dict = {}
+
+
+def _second_lm(task):
+    """The second member of phase 10's interpolated LM: a uniform unigram
+    over the task's vocabulary."""
+    from aaltoasr_tpu_torch.formats.arpa import ArpaLM
+    V = len(task.arpa.vocab)
+    return ArpaLM(order=1, vocab=list(task.arpa.vocab),
+                  word_index=dict(task.arpa.word_index),
+                  ngrams=[{}, {(i,): (float(np.log(1.0 / V)), 0.0)
+                               for i in range(V)}])
+
+
+def _word_classes_text(task) -> str:
+    """Phase 10's word classes: the first half of the words each its own
+    class at membership 0.5, in the second half each odd word a member
+    (0.4) of the class named by the even word before it (0.6)."""
+    words = task.info["words"]
+    half = len(words) // 2
+    lines = [f"{w} 0.5 {w}" for w in words[:half]]
+    for i in range(half, len(words) - 1, 2):
+        lines += [f"{words[i]} 0.6 {words[i]}",
+                  f"{words[i]} 0.4 {words[i + 1]}"]
+    return "\n".join(lines) + "\n"
+
+
+def _option_search(task, fields, extra, device):
+    """`BeamSearch` of ``task`` with config ``fields``; ``extra`` "inter"
+    interpolates the task's LM (0.8) with `_second_lm` (0.2), "classes"
+    decodes with `_word_classes_text`."""
+    from aaltoasr_tpu_torch.decoder.classes import WordClasses
+    from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa
+    from aaltoasr_tpu_torch.decoder.search import BeamSearch, SearchConfig
+    lm, wc = task.fsa, None
+    if extra == "inter":
+        lm = InterNGramFsa.from_arpas([task.arpa, _second_lm(task)],
+                                      [0.8, 0.2])
+    elif extra == "classes":
+        wc = WordClasses.read(_word_classes_text(task))
+    return BeamSearch(task.tree, lm, task.model, SearchConfig(**fields),
+                      word_classes=wc, device=device)
+
+
 def _cpu_job(kind: str, args):
-    """Phase [9]'s CPU side, in a worker process of one thread: a
-    lattice decode (``kind`` "dense" or "exact", args = (`synth_task`
-    arguments, config fields, [1, T, S] observations)) returning the
-    result's fields, or a CLI run (``kind`` its module, args = argv)
-    returning `_cli`'s (stdout, stderr, wall s)."""
+    """Phases [9] and [10]'s CPU side, in a worker process of one thread:
+    a lattice decode (``kind`` "dense" or "exact", args = (`synth_task`
+    arguments, config fields, [1, T, S] observations[, the exact
+    engine's `_option_search` extra])) returning the result's fields, or
+    a CLI run (``kind`` its module, args = argv) returning `_cli`'s
+    (stdout, stderr, wall s)."""
     torch.set_num_threads(1)
     if kind in ("dense", "exact"):
-        from aaltoasr_tpu_torch.decoder.search import BeamSearch, SearchConfig
+        from aaltoasr_tpu_torch.decoder.search import SearchConfig
         from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
         from aaltoasr_tpu_torch.synth import synth_task
-        task_args, fields, obs = args
-        task = synth_task(**task_args)
-        cls = DenseBeamSearch if kind == "dense" else BeamSearch
-        res = cls(task.tree, task.fsa, task.model, SearchConfig(**fields),
-                  device="cpu").decode_batch(obs, [obs.shape[1]],
-                                             lattice=True)[0]
+        task_args, fields, obs, *extra = args
+        key = tuple(sorted(task_args.items()))
+        if key not in _TASKS:
+            _TASKS[key] = synth_task(**task_args)
+        task = _TASKS[key]
+        if kind == "dense":
+            search = DenseBeamSearch(task.tree, task.fsa, task.model,
+                                     SearchConfig(**fields), device="cpu")
+        else:
+            search = _option_search(task, fields, (extra or [None])[0],
+                                    "cpu")
+        res = search.decode_batch(obs, [obs.shape[1]], lattice=True)[0]
         return {f: getattr(res, f) for f in _RESULT_FIELDS}
     import importlib
     return _cli(importlib.import_module(kind).main, args)
@@ -1225,6 +1295,328 @@ def phase_lattice(device, task, recognize_argv, card="", B=128, T=1000,
           flush=True)
 
 
+# phase 10's options on top of phase 8's bench cross-word point
+BENCH_POINT = dict(lm_scale=30.0, duration_scale=3.0, num_tokens=512,
+                   num_records=32, overflow_tokens=128, we_prewalk=256,
+                   reentry_records=8, reentry_prewalk=8)
+STREAM_OPTIONS = {
+    "lookahead 3": ({"lm_lookahead": 3}, None),
+    "reentry_topk 4": ({"reentry_topk": 4}, None),
+    "reentry_preselect 256": ({"reentry_preselect": 256}, None),
+    "eq_depth_beam 200": ({"eq_depth_beam": 200.0}, None),
+    "eq_word_count_beam 200": ({"eq_word_count_beam": 200.0}, None),
+    "fan_in_beam 200": ({"fan_in_beam": 200.0}, None),
+    "fan_out_beam 200": ({"fan_out_beam": 200.0}, None),
+    "tp_state_beam 100": ({"tp_state_beam": 100.0}, None),
+    "interpolated LM (2 members)": ({}, "inter"),
+    "word classes": ({}, "classes"),
+}
+
+
+def _block_kernels(device, task, samples, block):
+    """K1 and K2 at the shapes one `decode_stream` block gives them: K2
+    on the block's frames with the feature DAG's context, K1 on its
+    features against the task's model; each against its plain version."""
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.ops import frontend_cuda as FC
+    from aaltoasr_tpu_torch.synth import MFCC_CFG
+    fg = FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=device)
+    x = torch.as_tensor(samples, dtype=torch.float32, device=device)
+    nl, nr = fg.need["fft"]
+    n = torch.full((1,), fg.num_frames(x.shape[0]), device=device)
+    frames = fg._base_frames(x[None], n, nl, block, nr)
+    frames = frames.reshape(-1, frames.shape[-1]).contiguous()
+    args = (frames, fg.ops["fft"].table("basis", device),
+            fg.ops["mel"].table("weights", device),
+            fg.ops["dct"].table("matrix", device))
+    err2, ok = _mfcc_check(args)
+    if not ok:
+        fail("mfcc_core disagrees with its plain version at the block shape")
+    T2, W = frames.shape
+    k2 = {"max_abs_err": err2,
+          "ms": graph_ms(lambda: FC.mfcc_core(*args), device, iters=100),
+          "plain_ms": graph_ms(lambda: FC.reference_core(*args), device,
+                               iters=100),
+          "library_ms": None}
+    C = args[3].shape[1]
+    k2["bound_ms"], k2["bound_by"] = bound(2.0 * T2 * W * args[1].shape[1],
+                                           4.0 * T2 * (W + C + 1))
+    print(f"[10] mfcc_core at the block shape ({T2}, {W}) frames: max|d| "
+          f"{err2:.3e}; kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms by "
+          f"{k2['bound_by']}", flush=True)
+    feats = fg.features_range(x, 0, block).contiguous()
+    err1, ms1, plain1, _mm, b1 = _gmm_shape(device, feats, task.model,
+                                            "at the block shape", tag="[10]")
+    k1 = {"max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
+          "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None}
+    return k2, k1
+
+
+def phase_stream(device, task, recognize_argv, card="", T=1000,
+                 n_stream=2, block=32, T_opt=500, B_opt=4, task_args=TASK):
+    """[10] Streaming and the rest of the exact engine's options (see the
+    module docstring).  The CPU side, `decode_stream` of the first WAV
+    and the first utterance of each option, runs in spawned worker
+    processes (one thread each) from the start of the phase."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import decode_stream
+    from aaltoasr_tpu_torch.decoder.search import (
+        BeamSearch, DecodeResult, SearchConfig, StreamingDecoder)
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.synth import planted_obs, synth_obs
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.synth import feature_model
+    t_phase = time.perf_counter()
+    argv = list(recognize_argv)
+    work = os.path.join(argv[argv.index("-w") + 1], "stream")
+    os.makedirs(work)
+    cfg = FeatureConfig.load(argv[argv.index("-c") + 1])
+    plain_fg = FeatureGenerator(cfg, device=device)
+    raws, feats = [], []
+    for u in range(n_stream):
+        samples, _ = read_audio(os.path.join(
+            os.path.dirname(argv[argv.index("-r") + 1]), f"u{u}.wav"), 16000)
+        raws.append(os.path.join(work, f"u{u}.raw"))
+        np.asarray(samples).astype("<i2").tofile(raws[-1])
+        feats.append(plain_fg.features(samples).cpu().numpy())
+    # the task's model with its Gaussians placed on these WAVs' features
+    # (noise audio) and no duration model, so that the stream decodes to
+    # words (with the task's model, or with durations, the 1-best of
+    # noise holds no word or one)
+    am = os.path.join(work, "am")
+    model_io.write_model(am, feature_model(task.model, np.concatenate(feats),
+                                           0.25))
+    stream_argv = ["-b", am, "-c", argv[argv.index("-c") + 1],
+                   "-l", argv[argv.index("-l") + 1],
+                   "-n", argv[argv.index("-n") + 1]]
+    plan, true_opt = synth_obs(task.model, task.info, B_opt, T_opt, seed=3)
+    g = torch.Generator(device=device).manual_seed(3)
+    obs_opt = planted_obs(plan, task.model.num_states, g, device=device)
+    n_opt = np.full(B_opt, T_opt)
+    pool = ProcessPoolExecutor(
+        6, mp_context=multiprocessing.get_context("spawn"))
+    cpu = {"stream": pool.submit(
+        _cpu_job, "aaltoasr_tpu_torch.cli.decode_stream",
+        stream_argv + ["--device", "cpu", raws[0]])}
+    first = obs_opt[:1].cpu().numpy()
+    for name, (fields, extra) in STREAM_OPTIONS.items():
+        cpu[name] = pool.submit(_cpu_job, "exact", (
+            task_args, {**BENCH_POINT, **fields}, first, extra))
+
+    # (a) phase 8's first planted utterances pushed in blocks
+    plan, true_words = synth_obs(task.model, task.info, 128, T)
+    g = torch.Generator(device=device).manual_seed(1)
+    obs = planted_obs(plan, task.model.num_states, g, device=device)
+    obs = obs[:n_stream].clone()
+    search = BeamSearch(task.tree, task.fsa, task.model,
+                        SearchConfig(lm_scale=30.0, duration_scale=3.0),
+                        device=device)
+    off = search.decode_batch(obs, np.full(n_stream, T), lattice=False)
+    block_ms, partial_ms, result_ms = [], [], []
+    for u in range(n_stream):
+        sd = StreamingDecoder(search)
+        for lo in range(0, T, block):
+            sync(device)
+            t0 = time.perf_counter()
+            sd.push_frames(obs[u, lo:lo + block])
+            sync(device)
+            block_ms.append(1e3 * (time.perf_counter() - t0))
+            if (lo + block) % (2 * block) == 0:
+                t0 = time.perf_counter()
+                words = sd.partial()
+                partial_ms.append(1e3 * (time.perf_counter() - t0))
+                if words != sd.result().words:
+                    fail(f"stream {u} at frame {sd.frame}: partial() "
+                         f"differs from result().words")
+        t0 = time.perf_counter()
+        res = sd.result()
+        result_ms.append(1e3 * (time.perf_counter() - t0))
+        if res.words != off[u].words:
+            fail(f"stream {u}: words differ from BeamSearch.decode_batch")
+    agree, tot = _planted(off, true_words, n=n_stream)
+    audio_ms = block * 8.0
+    print(f"[10] StreamingDecoder, default knobs (W=1024, E=128), "
+          f"{n_stream} planted utterances of {T} frames in {block}-frame "
+          f"blocks: words identical to BeamSearch.decode_batch (planted "
+          f"words {agree}/{tot}), partial() == result().words every "
+          f"{2 * block} frames; ms per block median "
+          f"{np.median(block_ms):.2f} max {max(block_ms):.2f} ("
+          f"{audio_ms / np.median(block_ms):.2f}x real time, "
+          f"{np.median(block_ms) / block:.3f} ms a frame); partial() ms "
+          f"median {np.median(partial_ms):.2f} max {max(partial_ms):.2f}; "
+          f"result() ms {', '.join(f'{v:.2f}' for v in result_ms)} on "
+          f"{card}", flush=True)
+    del obs
+
+    # (b) decode_stream on the WAVs as raw s16le, the kernels counted
+    blocks = [0]
+    push = StreamingDecoder.push_frames
+
+    def counted(self, log_probs):
+        blocks[0] += 1
+        return push(self, log_probs)
+
+    StreamingDecoder.push_frames = counted
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    lines, secs = [], 0.0
+    t_card = 0.0
+    try:
+        for raw in raws:
+            text, err, wall = _cli(decode_stream.main, stream_argv + [
+                "--device", device.type, raw])
+            lines.append(text.strip())
+            t_card += wall
+            secs += os.path.getsize(raw) / 2 / 16000
+    finally:
+        StreamingDecoder.push_frames = push
+    launches = {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+    print(f"[10] decode_stream --device {device.type} on {len(raws)} WAVs "
+          f"as raw "
+          f"s16le ({secs:.1f} s of audio): {t_card:.3f} s wall = "
+          f"{secs / t_card:.2f}x real time; {blocks[0]} blocks; launches "
+          f"{launches} ({launches['mfcc_core'] / blocks[0]:.2f} K2, "
+          f"{launches['gmm_state_ll'] / blocks[0]:.2f} K1 a block)",
+          flush=True)
+    for ln in lines:
+        print(f"[10]   {ln}", flush=True)
+    if not all(lines):
+        fail("decode_stream printed no words")
+    if min(launches.values()) < 1:
+        fail(f"a kernel was not launched by decode_stream: {launches}")
+    samples, _ = read_audio(os.path.join(os.path.dirname(
+        argv[argv.index("-r") + 1]), "u0.wav"), 16000)
+    k2_block, k1_block = _block_kernels(device, task, samples, block)
+    # features_range with the fused frontend over a growing buffer, as
+    # decode_stream calls it, against the plain frontend's features of
+    # the whole utterance
+    fused = FeatureGenerator(cfg, fused_mfcc=True, device=device)
+    whole = plain_fg.features(samples)
+    x = torch.as_tensor(samples, dtype=torch.float32, device=device)
+    n_buf = min(8, x.shape[0] // 16000)
+    part = torch.cat([fused.features_range(x[:16000 * (k + 1)], 40 * k,
+                                           40 * k + 40)
+                      for k in range(n_buf)])
+    d = float((part - whole[:40 * n_buf]).abs().max())
+    print(f"[10] features_range, fused frontend, over growing buffers: "
+          f"max|d| {d:.3e} against the plain frontend's whole-utterance "
+          f"features (first {40 * n_buf} frames; tolerance 1e-4 x max "
+          f"{float(whole.abs().max()):.1f})", flush=True)
+    if d > 1e-4 * float(whole.abs().max()):
+        fail("features_range with fused_mfcc differs from features")
+
+    # (d) the options at the bench point, on the card
+    option_ms = {}
+    for name, (fields, extra) in STREAM_OPTIONS.items():
+        s2 = _option_search(task, {**BENCH_POINT, **fields}, extra, device)
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = s2.decode_batch(obs_opt, n_opt)
+        sync(device)
+        option_ms[name] = time.perf_counter() - t0
+        if s2._la_ctx:
+            at_default = _ctx_peak(BeamSearch(
+                task.tree, task.fsa, task.model, SearchConfig(
+                    lm_scale=30.0, duration_scale=3.0, lm_lookahead=3),
+                device=device), 1)
+            print(f"[10] {name}: {_ctx_peak(s2, B_opt)}; peak device memory "
+                  f"of the decode {_peak_gib(device)}; at the default knobs "
+                  f"(W=1024, E=128), B=1, computed: {at_default}", flush=True)
+        agree, tot = _planted(res, true_opt, n=B_opt)
+        host = DecodeResult(search=s2, **cpu[name].result())
+        same = (res[0].words == host.words
+                and res[0].final_word == host.final_word
+                and np.array_equal(res[0].rec_words, host.rec_words)
+                and np.array_equal(res[0].rec_prevs, host.rec_prevs)
+                and all(np.allclose(a, b, rtol=1e-5, atol=1e-3) for a, b in (
+                    (res[0].log_prob, host.log_prob),
+                    (res[0].rec_ams, host.rec_ams),
+                    (res[0].rec_lmss, host.rec_lmss))))
+        print(f"[10] {name} at the bench point, B={B_opt} T={T_opt}: "
+              f"{option_ms[name]:.3f} s ({B_opt * T_opt / 125.0 / option_ms[name]:.1f}x "
+              f"real time); planted words {agree}/{tot}; first utterance, "
+              f"card against CPU: {'identical' if same else 'DIFFERENT'}",
+              flush=True)
+        if agree < tot - 1:
+            fail(f"{name}: planted words {agree}/{tot} below {tot - 1}/{tot}")
+        if not same:
+            fail(f"{name}: card and CPU differ on the first utterance")
+
+    # (c) the first WAV on the CPU
+    cpu_text, _, cpu_wall = cpu["stream"].result()
+    t_cpu_side = time.perf_counter() - t_phase
+    pool.shutdown()
+    card_w, cpu_w = lines[0].split(), cpu_text.split()
+    print(f"[10] decode_stream --device cpu on u0.raw: {cpu_wall:.3f} s; "
+          f"words {'identical' if card_w == cpu_w else 'DIFFERENT'} to the "
+          f"card's", flush=True)
+    if card_w != cpu_w:
+        _explain_stream_diff(device, stream_argv, raws[0], cpu_w)
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
+    return launches, blocks[0], k2_block, k1_block
+
+
+def _peak_gib(device) -> str:
+    if device.type != "cuda":
+        return "not measured (CPU)"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def _ctx_peak(search, B) -> str:
+    """The context lookahead's largest intermediate: per backoff level a
+    bool mask and a float32 select over [B, tokens, targets, amax], for
+    the in-word lanes, the overflow lanes and the re-entry rows (computed
+    over whole rows before ``reentry_prewalk`` picks)."""
+    cfg = search.config
+    amax = search.t["la_pos"].shape[1]
+    W = cfg.num_tokens
+    A = search._rows_i.slices["arc_tgt"][1]
+    Er = min(cfg.reentry_records or cfg.num_records, cfg.num_records)
+    pre = "_pre" if search._reentry_pre else ""
+    R = search.t["root_tgt" + pre].shape[1]
+    groups = {"in-word": W * A, "re-entry": Er * R}
+    if cfg.overflow_tokens:
+        groups["overflow"] = (min(cfg.overflow_tokens, W)
+                              * search.t["over_tgt"].shape[1])
+    big = max(groups, key=groups.get)
+    return (f"context lookahead amax {amax}, {search._la_levels} levels; "
+            f"largest intermediate the {big} lanes' [B={B}, "
+            f"{groups[big]}, {amax}] mask + select, "
+            f"{5 * B * groups[big] * amax / 2**20:.1f} MiB a level (W*A = "
+            f"{groups['in-word']}, Er*R = {groups['re-entry']})")
+
+
+def _explain_stream_diff(device, stream_argv, raw, cpu_words):
+    """The card's and the CPU's decode_stream words differ: run it again
+    on the card with the plain scorer (no kernel); if that gives the
+    CPU's words, the fused scoring's 3xTF32 sums moved a near tie."""
+    from aaltoasr_tpu_torch.cli import decode_stream
+    fused_for = decode_stream.scores_full_cov
+    decode_stream.scores_full_cov = lambda model: True
+    try:
+        text, _, _ = _cli(decode_stream.main,
+                          stream_argv + ["--device", device.type, raw])
+    finally:
+        decode_stream.scores_full_cov = fused_for
+    same = text.split() == cpu_words
+    print(f"[10] decode_stream on the card with the plain scorer: words "
+          f"{'identical' if same else 'DIFFERENT'} to the CPU's", flush=True)
+    if not same:
+        fail("decode_stream on the card and the CPU differ beyond the "
+             "fused scoring")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -1259,6 +1651,7 @@ def main() -> int:
         adapt = phase_adapt(device, task, workdir)
         phase_exact(device, task, recognize_argv, card=card)
         phase_lattice(device, task, recognize_argv, card=card)
+        stream = phase_stream(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
 
     kernels = [
@@ -1269,8 +1662,14 @@ def main() -> int:
          "replaces": GMM_REPLACES, "launches": launches["gmm_state_ll"],
          **gmm},
     ]
-    for k in kernels:       # the main path's count above; [7]'s per path
+    s_launches, s_blocks, k2_block, k1_block = stream
+    for k, blk in zip(kernels, (k2_block, k1_block)):
+        # the main path's count above; [7]'s per path; [10]'s
+        # decode_stream run, its blocks and the kernel at a block's shape
         k["launches_phase7"] = {p: n[k["name"]] for p, n in adapt.items()}
+        k["launches_phase10"] = s_launches[k["name"]]
+        k["phase10_blocks"] = s_blocks
+        k["block_shape"] = blk
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -363,17 +363,26 @@ def test_recombination_ties(seed):
     assert 0 < ok.sum() < W
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"lm_lookahead": 3}, "item 4"),
-    ({"reentry_topk": 4}, "item 4"),
-    ({"reentry_preselect": 8}, "item 4"),
-    ({"eq_depth_beam": 50.0}, "item 4"),
-    ({"tp_state_beam": 50.0}, "item 4"),
+@pytest.mark.parametrize("kw", [
+    {"lm_lookahead": 3},
+    {"reentry_topk": 4},
+    {"reentry_preselect": 8},
+    {"eq_depth_beam": 50.0},
+    {"tp_state_beam": 50.0},
 ])
-def test_later_options_raise(kw, match):
+def test_later_options_raise(kw):
+    """The options that once raised in the port (item 4) decode as the
+    reference does on the monophone bigram task."""
     model, tree, fsa = make_decode_task()
-    with pytest.raises(NotImplementedError, match=match):
-        port_search(tree, fsa, model, JConfig(**kw))
+    cfg = JConfig(num_tokens=24, num_records=8, beam=1e9, lm_scale=2.0,
+                  require_sentence_end=True, **kw)
+    obs, n = padded([np.array(synth_obs(tree, model, seq, frames_per_phone=2,
+                                        noise=1.5, seed=seed))
+                     for seed, seq in MONO_CASES])
+    ref = JBeamSearch(tree, fsa, model, cfg).decode_batch(obs, n)
+    got = port_search(tree, fsa, model, cfg).decode_batch(obs, n)
+    for r, g in zip(ref, got):
+        assert_same(r, g)
 
 
 def test_word_graph_names_the_lattice_item():
@@ -397,3 +406,441 @@ def test_word_graph_names_the_lattice_item():
                                    [getattr(a, f) for a in want.arcs],
                                    rtol=0, atol=2e-3)
     assert (got.start_node, got.end_node) == (want.start_node, want.end_node)
+
+
+# ---- the rest of the exact engine's options -------------------------------
+
+# context lookahead, compact and preselected re-entry and the pruning
+# extensions on the 30-word cross-word task (fan networks, zero entry
+# log-probs, a trigram LM); each pruning beam loose and tight
+XW_OPTIONS = {
+    "lookahead_3": {"lm_lookahead": 3},
+    "lookahead_3_compact": {"lm_lookahead": 3, "overflow_tokens": 16,
+                            "we_prewalk": 24, "reentry_records": 4,
+                            "reentry_prewalk": 4},
+    "reentry_topk": {"reentry_topk": 2},
+    "reentry_topk_lookahead_3": {"reentry_topk": 2, "lm_lookahead": 3,
+                                 "overflow_tokens": 16},
+    "reentry_preselect": {"reentry_preselect": 6},
+    "reentry_preselect_prewalk": {"reentry_preselect": 6,
+                                  "reentry_prewalk": 3},
+    "reentry_preselect_lookahead_3": {"reentry_preselect": 6,
+                                      "lm_lookahead": 3},
+    "eq_depth_loose": {"eq_depth_beam": 1e8},
+    "eq_depth_tight": {"eq_depth_beam": 40.0},
+    "eq_word_count_loose": {"eq_word_count_beam": 1e8},
+    "eq_word_count_tight": {"eq_word_count_beam": 40.0},
+    "fan_in_loose": {"fan_in_beam": 1e8},
+    "fan_in_tight": {"fan_in_beam": 40.0},
+    "fan_out_loose": {"fan_out_beam": 1e8},
+    "fan_out_tight": {"fan_out_beam": 40.0},
+    "tp_state_loose": {"tp_state_beam": 1e8, "num_tokens": 256},
+    "tp_state_tight": {"tp_state_beam": 2.0, "num_tokens": 256},
+    "all_beams_bench": {"eq_depth_beam": 60.0, "eq_word_count_beam": 60.0,
+                        "fan_in_beam": 60.0, "fan_out_beam": 60.0,
+                        "tp_state_beam": 30.0, "overflow_tokens": 16,
+                        "we_prewalk": 24, "reentry_prewalk": 4},
+}
+
+
+@pytest.mark.parametrize("opt", list(XW_OPTIONS))
+def test_crossword_options(xw_task, opt):
+    model, tree, fsa, task, obs, n = xw_task
+    kw = {"num_tokens": 64, "num_records": 16, **XW_OPTIONS[opt]}
+    cfg = JConfig(lm_scale=30.0, duration_scale=3.0,
+                  require_sentence_end=True, **kw)
+    jref = JBeamSearch(tree, fsa, model, cfg)
+    port = BeamSearch(task.tree, task.fsa, task.model,
+                      convert.search_config(cfg), device="cpu")
+    # the option engaged on both sides (no silent fallback)
+    for a in ("_la_ctx", "_reentry_topk", "_reentry_pre"):
+        assert getattr(port, a) == getattr(jref, a), a
+    if "lm_lookahead" in kw:
+        assert port._la_ctx
+    if "reentry_topk" in kw:
+        assert port._reentry_topk
+    if "reentry_preselect" in kw:
+        assert port._reentry_pre
+    ref = jref.decode_batch(obs, n)
+    got = port.decode_batch(obs, n)
+    assert any(r.words for r in ref)
+    for r, g in zip(ref, got):
+        assert_same(r, g)
+
+
+def test_tight_beams_prune(xw_task):
+    """The tight settings of XW_OPTIONS prune: each changes the records
+    of the search without the beam, where the loose ones keep them."""
+    model, tree, fsa, task, obs, n = xw_task
+
+    def records(**kw):
+        cfg = convert.search_config(JConfig(**{
+            "num_tokens": 64, "num_records": 16, "lm_scale": 30.0,
+            "duration_scale": 3.0, "require_sentence_end": True, **kw}))
+        res = BeamSearch(task.tree, task.fsa, task.model, cfg,
+                         device="cpu").decode_batch(obs, n)
+        return np.concatenate([r.rec_words.ravel() for r in res])
+
+    for name, kw in XW_OPTIONS.items():
+        if not name.endswith(("_tight", "_loose")):
+            continue
+        base = records(**{k: v for k, v in kw.items()
+                          if not k.endswith("_beam")})
+        if name.endswith("_tight"):
+            assert (records(**kw) != base).any(), name
+        else:
+            np.testing.assert_array_equal(records(**kw), base)
+
+
+def test_context_lookahead_tables(xw_task):
+    """The per-state successor lists of context lookahead equal the
+    reference's."""
+    model, tree, fsa, task, _, _ = xw_task
+    want = jsearch.context_lookahead_tables(
+        tree, fsa, [fsa.word_index.get(w, -1) for w in tree.vocab])
+    got = tsearch.context_lookahead_tables(
+        task.tree, task.fsa,
+        [task.fsa.word_index.get(w, -1) for w in task.tree.vocab])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert want["la_pos"].shape[1] > 1
+
+
+@pytest.mark.parametrize("opt", ["lookahead_3", "lookahead_3_prewalk",
+                                 "reentry_preselect"])
+def test_trigram_options(opt):
+    """Context lookahead (a three-level trigram walk) and the preselect
+    on the monophone trigram task."""
+    model, tree, fsa, _ = trigram_task()
+    kw = {"lookahead_3": {"lm_lookahead": 3},
+          "lookahead_3_prewalk": {"lm_lookahead": 3, "we_prewalk": 6,
+                                  "overflow_tokens": 4},
+          "reentry_preselect": {"reentry_preselect": 2,
+                                "lm_lookahead": 1}}[opt]
+    cfg = JConfig(num_tokens=64, num_records=16, beam=1e9, lm_scale=8.0,
+                  duration_scale=0.0, require_sentence_end=True, **kw)
+    obs, n = padded([np.array(synth_obs(tree, model, seq, noise=0.5,
+                                        seed=seed))
+                     for seed, seq in [(0, ["a", "b", "b", "a", "_"]),
+                                       (1, ["a", "b", "c", "a"]),
+                                       (2, ["b", "a", "c", "a", "_"])]])
+    jref = JBeamSearch(tree, fsa, model, cfg)
+    port = port_search(tree, fsa, model, cfg)
+    assert port._la_ctx == jref._la_ctx == (cfg.lm_lookahead == 3)
+    for r, g in zip(jref.decode_batch(obs, n), port.decode_batch(obs, n)):
+        assert_same(r, g)
+
+
+def test_reentry_topk_monophone_falls_back(capfd):
+    """A monophone tree's single context row is not a (class, rcset)
+    product: reentry_topk falls back to the full expansion with the
+    reference's message, and decodes as the reference does."""
+    model, tree, fsa = make_decode_task()
+    cfg = JConfig(num_tokens=256, num_records=16, lm_scale=1.0,
+                  reentry_topk=4)
+    obs = np.array(synth_obs(tree, model, ["a", "b", "a"], seed=1))
+    jref = JBeamSearch(tree, fsa, model, cfg)
+    port = port_search(tree, fsa, model, cfg)
+    assert port._reentry_topk == jref._reentry_topk
+    err = capfd.readouterr().err
+    if not port._reentry_topk:
+        assert err.count("reentry_topk unavailable") == 2
+    assert_same(jref.decode(obs), port.decode(obs))
+
+
+def make_second_lm(vocab, bias_word):
+    """A unigram ARPA LM strongly favouring one word."""
+    from aaltoasr_tpu.formats.arpa import ArpaLM
+    vocab = list(dict.fromkeys(["<s>", "</s>"] + list(vocab)))
+    wi = {w: i for i, w in enumerate(vocab)}
+    uni = {(wi[w],): (-0.15 if w == bias_word else -2.5, 0.0)
+           for w in vocab}
+    return ArpaLM(order=1, vocab=vocab, word_index=wi, ngrams=[{}, uni])
+
+
+def inter_lm(bias="kaksi", coeffs=(0.5, 0.5)):
+    from aaltoasr_tpu.decoder.ngram import InterNGramFsa as JInter
+    from aaltoasr_tpu.formats.arpa import read_arpa as jread
+    return JInter.from_arpas([jread(ARPA_TEXT),
+                              make_second_lm(["yksi", "kaksi", "kolme"],
+                                             bias)], list(coeffs))
+
+
+def test_inter_walk():
+    """The K-member walk (states as mixed-radix codes) against the
+    reference's, on every (state pair, word); the host walk too."""
+    from aaltoasr_tpu.decoder.ngram import lm_walk_device_multi as jmulti
+    from aaltoasr_tpu_torch.decoder.ngram import lm_walk_device_multi
+    ref = inter_lm(coeffs=(0.6, 0.4))
+    port = convert.inter_ngram_fsa(ref)
+    S0, S1 = (m.num_states for m in ref.members)
+    st = np.array([(a, b) for a in range(S0) for b in range(S1)
+                   for _ in range(ref.num_words)], np.int32)
+    w = np.tile(np.arange(ref.num_words, dtype=np.int32), S0 * S1)
+    jn, js = jmulti(ref, ref.member_tables(), jnp.asarray(st),
+                    jnp.asarray(w))
+    tn, ts = lm_walk_device_multi(port, port.member_tables(),
+                                  torch.tensor(st, dtype=torch.int64),
+                                  torch.tensor(w, dtype=torch.int64))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    code = port.encode(torch.tensor(st, dtype=torch.int64))
+    np.testing.assert_array_equal(port.decode(code).numpy(), st)
+    # codes order as the state tuples do
+    assert (np.diff(code.numpy()) >= 0).all()
+    for i in range(0, len(w), 7):
+        assert port.walk(st[i], int(w[i])) == pytest.approx(
+            ref.walk(st[i], int(w[i])))
+
+
+def test_inter_union_vocab():
+    """from_arpas maps every member onto the union vocabulary in the
+    reference's order."""
+    from aaltoasr_tpu.decoder.ngram import InterNGramFsa as JInter
+    from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa
+    from aaltoasr_tpu_torch.formats.arpa import ArpaLM as TArpa
+    a1 = make_second_lm(["yksi", "kaksi", "kolme"], "kaksi")
+    a2 = make_second_lm(["kolme", "neljä", "yksi"], "yksi")
+    ref = JInter.from_arpas([a1, a2], [0.7, 0.3])
+    got = InterNGramFsa.from_arpas(
+        [TArpa(order=a.order, vocab=list(a.vocab),
+               word_index=dict(a.word_index), ngrams=a.ngrams)
+         for a in (a1, a2)], [0.7, 0.3])
+    assert got.vocab == ref.vocab and got.word_index == ref.word_index
+    for gm, rm in zip(got.members, ref.members):
+        for f in ("trans_word", "trans_prob", "trans_next", "state_first",
+                  "bo_weight", "bo_next"):
+            np.testing.assert_array_equal(getattr(gm, f), getattr(rm, f))
+    assert got.initial_state().tolist() == ref.initial_state().tolist()
+
+
+@pytest.mark.parametrize("engine", ["exact", "dense"])
+def test_inter_decode(engine):
+    """Decoding with a two-member interpolated LM in both engines."""
+    from aaltoasr_tpu.decoder.search_dense import DenseBeamSearch as JDense
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+    model, tree, _ = make_decode_task()
+    ref_lm = inter_lm()
+    cfg = JConfig(num_tokens=64, num_records=16, beam=1e9, lm_scale=2.0,
+                  require_sentence_end=True)
+    obs, n = padded([np.array(synth_obs(tree, model, seq, noise=1.0,
+                                        seed=seed))
+                     for seed, seq in MONO_CASES])
+    args = (convert.prefix_tree(tree), convert.inter_ngram_fsa(ref_lm),
+            convert.hmm_model(model), convert.search_config(cfg))
+    if engine == "exact":
+        ref = JBeamSearch(tree, ref_lm, model, cfg).decode_batch(obs, n)
+        got = BeamSearch(*args, device="cpu").decode_batch(obs, n)
+        for r, g in zip(ref, got):
+            assert_same(r, g)
+        return
+    ref = JDense(tree, ref_lm, model, cfg).decode_batch(obs, n)
+    got = DenseBeamSearch(*args, device="cpu").decode_batch(obs, n)
+    for r, g in zip(ref, got):
+        assert_same(r, g)
+
+
+CLASS_ARPA = ARPA_TEXT.replace("ngram 1=5", "ngram 1=4").replace(
+    "ngram 2=6", "ngram 2=5").split("\\1-grams:")[0] + """\\1-grams:
+-0.7 </s>
+-99 <s> -0.6
+-0.4 NUM -0.3
+-0.9 kolme -0.2
+
+\\2-grams:
+-0.3 <s> NUM
+-0.2 NUM NUM
+-0.8 NUM kolme
+-0.4 kolme NUM
+-0.5 NUM </s>
+
+\\end\\
+"""
+CLASSES = "NUM 0.3 yksi\nNUM 0.7 kaksi\n"
+
+
+@pytest.mark.parametrize("engine", ["exact", "dense"])
+def test_word_classes(engine):
+    """Class-based decoding: the class is the LM word, the membership
+    log-prob joins the pronunciation score.  The reference edits its
+    tree in place, so the port gets a copy taken before the reference
+    search is built."""
+    from aaltoasr_tpu.decoder.classes import WordClasses as JClasses
+    from aaltoasr_tpu.decoder.search_dense import DenseBeamSearch as JDense
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+    model, tree, _ = make_decode_task()
+    fsa = NGramFsa.from_arpa(read_arpa(CLASS_ARPA))
+    wc = JClasses.read(CLASSES)
+    cfg = JConfig(num_tokens=64, num_records=16, beam=1e9, lm_scale=2.0,
+                  require_sentence_end=True)
+    obs, n = padded([np.array(synth_obs(tree, model, seq, noise=1.0,
+                                        seed=seed))
+                     for seed, seq in MONO_CASES])
+    args = (convert.prefix_tree(tree), convert.ngram_fsa(fsa),
+            convert.hmm_model(model), convert.search_config(cfg))
+    pron = np.array(tree.we_pron_logp)
+    cls_j, cls_t = (JBeamSearch, BeamSearch) if engine == "exact" else (
+        JDense, DenseBeamSearch)
+    ref = cls_j(tree, fsa, model, cfg, word_classes=wc).decode_batch(obs, n)
+    port = cls_t(*args, word_classes=convert.word_classes(wc), device="cpu")
+    np.testing.assert_array_equal(port.tree.we_pron_logp, pron)
+    got = port.decode_batch(obs, n)
+    assert any({"yksi", "kaksi"} & set(r.words) for r in ref)
+    for r, g in zip(ref, got):
+        assert_same(r, g)
+
+
+# ---- every Toolbox call the port added, against the reference's ------------
+
+def _golden_files(tmp_path):
+    """The golden monophone task's files, a second LM, word classes over
+    its vocabulary and two LNAs."""
+    from tests.test_golden_decode import make_task
+    from aaltoasr_tpu.formats.arpa import write_arpa
+    model, lex, _ = make_task(tmp_path)
+    words = sorted(lex)
+    write_arpa(make_second_lm(words, words[1]), str(tmp_path / "lm2.arpa"))
+    (tmp_path / "classes").write_text(
+        f"{words[0]} 1.0 {words[0]}\n{words[1]} 0.5 {words[1]}\n")
+    lnas = [synth_lna(tmp_path, model, lex, seq, seed=7 + i, noise=0.6,
+                      name=f"u{i}.lna")
+            for i, seq in enumerate([words[:3], words[1:4][::-1]])]
+    return model, lnas
+
+
+TOOLBOX_CALLS = {
+    "fsa_lm_read": [("fsa_lm_read", "@lm.arpa")],
+    "interpolated_ngram_read": [
+        ("interpolated_ngram_read", ["@lm.arpa", "@lm2.arpa"], [0.7, 0.3])],
+    "interpolated_lookahead_ngram_read": [
+        ("interpolated_lookahead_ngram_read", ["@lm.arpa", "@lm2.arpa"],
+         [0.5, 0.5]), ("set_lm_lookahead", 1)],
+    "hmm_read": [("hmm_read", "@m.ph"), ("lex_read", "@lex.dict")],
+    "read_word_classes": [("read_word_classes", "@classes")],
+    "set_transition_scale": [("set_transition_scale", 2.0)],
+    "set_cross_word_triphones": [("set_cross_word_triphones", False),
+                                 ("lex_read", "@lex.dict")],
+    "set_lm_lookahead_3": [("set_lm_lookahead", 3)],
+    "pruning_beams": [("set_eq_depth_beam", 60.0),
+                      ("set_eq_word_count_beam", 60.0),
+                      ("set_fan_in_beam", 60.0), ("set_fan_out_beam", 60.0),
+                      ("set_tp_state_beam", 30.0)],
+    "set_sentence_boundary": [("set_sentence_boundary", "</s>", "</s>"),
+                              ("set_require_sentence_end", True)],
+    "set_end": [("set_end", 9)],
+    "parity_flags": [("set_ignore_case", True), ("lex_read", "@lex.dict"),
+                     ("set_prune_similar", 3),
+                     ("set_use_word_pair_approximation", True),
+                     ("set_use_lm_cache", True),
+                     ("prune_lm_lookahead_buffers", 0.1, 4),
+                     ("set_remove_pronunciation_id", True),
+                     ("set_verbose", 1), ("set_print_probs", True),
+                     ("set_print_text_result", True)],
+}
+
+
+@pytest.mark.parametrize("case", list(TOOLBOX_CALLS))
+def test_toolbox_calls(tmp_path, case):
+    """Each new Toolbox call, made on both packages' Toolboxes over the
+    same files: the same decodes of two LNAs.  ``@name`` is a file of
+    the task."""
+    from aaltoasr_tpu.formats.model_io import write_dur
+    model, lnas = _golden_files(tmp_path)
+    write_dur(str(tmp_path / "m.dur"),
+              np.array([(2.0 + 0.5 * (s % 3), 1.5)
+                        for s in range(model.num_states)]))
+
+    def arg(a):
+        if isinstance(a, str) and a.startswith("@"):
+            return str(tmp_path / a[1:])
+        if isinstance(a, list):
+            return [arg(x) for x in a]
+        return a
+
+    def setup(t):
+        t.set_lm_scale(10.0)
+        t.set_global_beam(300.0)
+        t.set_silence_is_word(False)
+        t.set_require_sentence_end(True)
+        t.lex_read(str(tmp_path / "lex.dict"))
+        t.ngram_read(str(tmp_path / "lm.arpa"))
+        t.duration_read(str(tmp_path / "m.dur"))
+        for name, *args in TOOLBOX_CALLS[case]:
+            getattr(t, name)(*[arg(a) for a in args])
+        return t
+
+    ref = setup(JToolbox(str(tmp_path / "m.ph")))
+    got = setup(Toolbox(str(tmp_path / "m.ph"), device="cpu"))
+    assert got.config == convert.search_config(ref.config)
+    for lna in lnas:
+        assert_same(ref.lna_decode(lna), got.lna_decode(lna))
+
+
+def test_toolbox_streaming_calls(tmp_path):
+    """use_one_frame_acoustics / set_one_frame / run / stream_result on
+    both Toolboxes."""
+    from aaltoasr_tpu.formats.lna import read_lna as jread_lna
+    model, lnas = _golden_files(tmp_path)
+    lp, _ = jread_lna(lnas[0])
+    out = []
+    for t in (JToolbox(str(tmp_path / "m.ph")),
+              Toolbox(str(tmp_path / "m.ph"), device="cpu")):
+        t.set_lm_scale(10.0)
+        t.set_silence_is_word(False)
+        t.lex_read(str(tmp_path / "lex.dict"))
+        t.ngram_read(str(tmp_path / "lm.arpa"))
+        assert not t.run()
+        t.use_one_frame_acoustics()
+        for f in range(lp.shape[0]):
+            t.set_one_frame(f, lp[f])
+        assert t.run()
+        out.append(t.stream_result())
+    assert out[1].words == out[0].words and out[0].words
+    assert out[1].log_prob == pytest.approx(out[0].log_prob, rel=RTOL,
+                                            abs=ATOL)
+
+
+def test_word_classes_rebuild_quirk(tmp_path):
+    """The reference's `WordClasses.apply_to_tree` edits the tree in
+    place, so its Toolbox adds the membership log-probs again each time
+    a setter rebuilds the search.  The port matches the reference's
+    first build and stays there on a rebuild."""
+    from aaltoasr_tpu.formats.arpa import write_arpa
+    model, lnas = _golden_files(tmp_path)
+    res = {}
+    for name, t in (("ref", JToolbox(str(tmp_path / "m.ph"))),
+                    ("port", Toolbox(str(tmp_path / "m.ph"),
+                                     device="cpu"))):
+        t.set_lm_scale(10.0)
+        t.set_silence_is_word(False)
+        t.lex_read(str(tmp_path / "lex.dict"))
+        t.ngram_read(str(tmp_path / "lm.arpa"))
+        t.read_word_classes(str(tmp_path / "classes"))
+        first = t.lna_decode(lnas[0])
+        t.set_lm_scale(10.0)                  # rebuilds the search
+        res[name] = (first, t.lna_decode(lnas[0]))
+    assert_same(res["ref"][0], res["port"][0])
+    assert_same(res["port"][0], res["port"][1])
+    # the reference's second build paid ln(0.5) once more per member word
+    assert res["ref"][1].final_lms < res["ref"][0].final_lms - 0.5
+
+
+def test_recombination_unfused_key():
+    """Without the fused int64 key (node x state codes too wide) the two
+    extra stable sorts keep the reference's order."""
+    rng = np.random.default_rng(7)
+    C, W, S = 96, 40, 5
+    node = rng.integers(0, 6, C).astype(np.int32)
+    lm = rng.integers(0, S, C).astype(np.int32)
+    total = rng.choice(np.array([0.0, -0.0, -1.5, 2.25, -np.inf],
+                                np.float32), C)
+    alive = rng.random(C) < 0.8
+    sel, ok = _lax_recombine(node, lm, total, alive, W)
+    got_sel, got_ok = recombine(
+        torch.tensor(node, dtype=torch.int64)[None],
+        torch.tensor(lm, dtype=torch.int64)[None],
+        torch.tensor(total)[None], torch.tensor(alive)[None], S, W,
+        fused_key=False)
+    np.testing.assert_array_equal(got_ok[0].numpy(), ok)
+    np.testing.assert_array_equal(got_sel[0].numpy()[ok], sel[ok])

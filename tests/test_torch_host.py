@@ -194,18 +194,54 @@ t.htk_lattice_grammar_read(p("wg.slf"))
 assert t.lm.vocab == ["au", "to"]
 """
 
+# the streaming slice's entry points: decode_stream on a raw file, and a
+# Toolbox with an interpolated LM, word classes, context lookahead and
+# the pruning beams, pushed frame by frame
+STREAM_CALLS = """
+from aaltoasr_tpu_torch.cli import decode_stream
+open(p("f.cfg"), "w").write(synth.mfcc_cfg())
+write_model(p("s"), synth.random_model(G=16, S=8, D=39, K=2))
+open(p("s.lex"), "w").write("au p0 p1\\nto p2 p3\\n")
+open(p("cls"), "w").write("au 1.0 au\\nto 0.5 to\\n")
+(np.random.default_rng(0).normal(0, 300, 8000).astype("<i2")
+ .tofile(p("a.raw")))
+with contextlib.redirect_stdout(io.StringIO()), \\
+        contextlib.redirect_stderr(io.StringIO()):
+    decode_stream.main(["-b", p("s"), "-c", p("f.cfg"), "-l", p("s.lex"),
+                        "-n", p("lm.arpa"), "--tokens", "32",
+                        "--partial-every", "16", "--device", "cpu",
+                        p("a.raw")])
+lp = np.log(np.full((6, 8), 1 / 8, np.float32))
+for lm_call, la in (("interpolated_ngram_read", 2), ("ngram_read", 3)):
+    t = Toolbox(p("s.ph"), device="cpu")
+    t.set_token_limit(32)
+    t.set_eq_word_count_beam(50.0)
+    t.set_tp_state_beam(50.0)
+    t.lex_read(p("s.lex"))
+    if la == 2:
+        t.interpolated_ngram_read([p("lm.arpa"), p("back.arpa")], [0.5, 0.5])
+        t.read_word_classes(p("cls"))
+    else:
+        t.ngram_read(p("lm.arpa"))
+    t.set_lm_lookahead(la)
+    sd = t.use_one_frame_acoustics()
+    sd.push_frames(lp)
+    sd.partial()
+    t.stream_result()
+"""
+
 
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports without
     pulling jax or the JAX package into the process, nor does a call of
-    each lattice entry point."""
+    each lattice and streaming entry point."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import aaltoasr_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'aaltoasr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n" + LATTICE_CALLS +
+        "import chip_smoke\n" + LATTICE_CALLS + STREAM_CALLS +
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aaltoasr_tpu' or m.startswith('aaltoasr_tpu.')]\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
@@ -217,6 +253,7 @@ def test_port_imports_no_jax():
     for m in ("decoder.search_dense", "decoder.wordgraph", "decoder.slf",
               "decoder.intergram", "decoder.morpheus", "decoder.morphset",
               "formats.treegram_bin", "cli.lattice_rescore",
-              "cli.morph_lattice", "cli.arpa2bin", "cli.bin2arpa"):
+              "cli.morph_lattice", "cli.arpa2bin", "cli.bin2arpa",
+              "decoder.classes", "cli.decode_stream"):
         assert "aaltoasr_tpu_torch." + m in res["modules"]
     assert len(res["modules"]) >= 35
