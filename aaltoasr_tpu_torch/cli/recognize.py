@@ -36,7 +36,8 @@ _LATER = {
     "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
              "adaptation)",
     "stateseg": "state segmentation is not ported yet (ROADMAP queue 1 "
-                "item 5: training, whose HMM networks it aligns on)",
+                "item 5: training, its hmmnet half, whose HMM networks it "
+                "aligns on)",
 }
 
 

@@ -20,8 +20,10 @@ from aaltoasr_tpu_torch.decoder.lexicon import PrefixTree
 from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa, NGramFsa
 from aaltoasr_tpu_torch.decoder.search import SearchConfig
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, HmmPhone
+from aaltoasr_tpu_torch.models.hmm import LinearChain, TransitionTable
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
 from aaltoasr_tpu_torch.ops.gmm_cuda import FusedGmmScorer
+from aaltoasr_tpu_torch.train.accumulators import BufferStats, HmmStats
 
 
 def _copy_fields(cls, ref, **override):
@@ -105,3 +107,18 @@ def fused_gmm_scorer(ref, device: torch.device | str = "cpu") -> FusedGmmScorer:
     return FusedGmmScorer(dim=ref.dim, num_states=ref.num_states,
                           we=torch.as_tensor(np.array(ref.we),
                                              device=device))
+
+
+def transition_table(ref) -> TransitionTable:
+    return _copy_fields(TransitionTable, ref)
+
+
+def linear_chain(ref) -> LinearChain:
+    return _copy_fields(LinearChain, ref)
+
+
+def hmm_stats(ref) -> HmmStats:
+    """A reference `HmmStats` with each of its buffers."""
+    buffers = {b: _copy_fields(BufferStats, buf)
+               for b, buf in ref.buffers.items()}
+    return _copy_fields(HmmStats, ref, buffers=buffers)

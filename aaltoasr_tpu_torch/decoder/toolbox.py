@@ -10,7 +10,8 @@ and lookahead LMs, HTK lattices as grammars, word classes, the HMM and
 duration files), the search knobs and pruning beams, the API-parity
 flags, and push-model decoding (`use_one_frame_acoustics`,
 `set_one_frame`, `run`, `stream_result`).  State segmentation is not
-ported yet (ROADMAP queue 1 item 5, training).
+ported yet (ROADMAP queue 1 item 5: training, its hmmnet half, whose
+HMM networks it aligns on; training on transcript chains is ported).
 """
 
 from __future__ import annotations

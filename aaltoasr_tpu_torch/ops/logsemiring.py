@@ -1,4 +1,4 @@
-"""Log-semiring primitives shared by scoring and decoding.
+"""Log-semiring primitives shared by scoring, decoding and training.
 
 Counterpart of `aaltoasr_tpu/ops/logsemiring.py`.  ``LOG_ZERO`` is the
 finite stand-in for log(0): small enough that exp() is 0 in float32,
@@ -45,3 +45,29 @@ def logsumexp(x: torch.Tensor, dim: int = -1, keepdim: bool = False,
     if not keepdim:
         out = out.squeeze(dim)
     return out
+
+
+def segment_logsumexp(x: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Log-sum-exp of ``x`` [N, ...] grouped along dim 0 by
+    ``segment_ids`` [N] -> [num_segments, ...].
+
+    The log-domain analog of scatter-add, used to reduce arc scores onto
+    lattice nodes.  Two-pass max-shift for stability; empty segments
+    give LOG_ZERO.
+    """
+    ids = segment_ids.to(torch.int64)
+    idx = ids.view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
+    shape = (num_segments,) + tuple(x.shape[1:])
+    seg_max = torch.full(shape, float("-inf"), dtype=x.dtype,
+                         device=x.device).scatter_reduce(
+        0, idx, x, "amax", include_self=True)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.full_like(seg_max, LOG_ZERO))
+    safe = torch.clamp(seg_max, min=LOG_ZERO / 2)
+    shifted = torch.exp(x - safe[ids])
+    sums = torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(
+        0, ids, shifted)
+    return torch.where(seg_max <= LOG_ZERO / 2,
+                       torch.full_like(seg_max, LOG_ZERO),
+                       safe + torch.log(torch.clamp(sums, min=1e-37)))

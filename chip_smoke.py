@@ -76,7 +76,23 @@ Phases, each printing a summary line:
    `InterNGramFsa`, word classes) at phase 8's bench point on 4 planted
    utterances of 500 frames (planted words checked), the first on the CPU
    too (words and records identical), timed.  Its CPU side runs in
-   spawned worker processes beside the card's runs.
+   spawned worker processes beside the card's runs;
+11. ML training, which launches neither kernel (both counters must stay
+   at 0 over the phase): (a) the E-step (`train/estep.chain_stats`) at
+   bench.py's `estep_fps` point (G=10,000, S=2,500, K=8, D=39, a
+   256-label chain of 512 positions, B=32 utterances of T=1,000 frames)
+   in both forward-backward forms, plain and shift-compiled: frames/s
+   and x real time (median of 3 calls), peak device memory, and from
+   torch.profiler over one call the kernel launches a frame and the
+   device-busy share; the first utterance on the CPU in a worker, whose
+   statistics the card's must match within twice the CPU's own spread
+   between its two FB forms (the float32 noise floor at this size);
+   (b) `align`, `stats` and `estimate` on 8 WAVs of 8 s with 100-label
+   transcripts, normalized splice + LDA features and the same model as
+   files, `stats` against the CPU by the same rule; (c) `train`, 2 EM
+   iterations with a split, `--durations` and 256 clusters: the
+   log-likelihood must rise and its first model match (b)'s estimate,
+   each stage timed.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -1617,6 +1633,379 @@ def _explain_stream_diff(device, stream_argv, raw, cpu_words):
              "fused scoring")
 
 
+# bench.py's `estep_fps` point: the scoring model, a 256-label chain
+# (512 positions, fan 4), B utterances of T frames of N(0, 2) features
+ESTEP_POINT = dict(G=10000, S=2500, D=39, K=8, labels=256, B=32, T=1000)
+
+
+def _estep_inputs(G, S, D, K, labels, B, T):
+    """The E-step point's host inputs: (model, table, padded chain graph
+    (not shift-compiled), [B, T, D] features), made as bench.py makes
+    them."""
+    from aaltoasr_tpu_torch.models.hmm import (
+        TransitionTable, build_chain, pad_chain)
+    from aaltoasr_tpu_torch.synth import random_model
+    model = random_model(G=G, S=S, D=D, K=K)
+    table = TransitionTable.from_model(model)
+    chain = build_chain(model, table,
+                        [f"p{i % (S // 2)}" for i in range(labels)])
+    P = 512
+    while chain.num_positions > P:
+        P *= 2
+    feats = np.random.default_rng(0).normal(0, 2, (B, T, D)).astype(
+        np.float32)
+    return model, table, pad_chain(chain, P, fan=4), feats
+
+
+def _estep_graph(pad, variant):
+    from aaltoasr_tpu_torch.train.estep import shift_compile
+    return shift_compile(pad) if variant == "shift" else pad
+
+
+def _train_cpu_job(kind: str, args):
+    """Phase [11]'s CPU side, in a worker process of two threads:
+    ``"estep"`` runs the E-step point's first utterance (args = the
+    point) through both FB forms and returns each form's statistics;
+    ``"stats"`` runs `cli.stats` (args = its argv and two output bases)
+    as it is, then with the plain FB form (`shift_compile` left out),
+    the spread between the two being the CPU's float32 noise floor."""
+    torch.set_num_threads(2)
+    from aaltoasr_tpu_torch.train import estep
+    if kind == "estep":
+        from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+        from aaltoasr_tpu_torch.train.driver import fetch
+        model, table, pad, feats = _estep_inputs(**args)
+        scorer = GmmScorer.from_model(model, device="cpu")
+        out = {}
+        for v in ("plain", "shift"):
+            st = estep.chain_stats(
+                scorer, torch.as_tensor(feats[:1]),
+                estep.stack_graphs([_estep_graph(pad, v)], "cpu"),
+                torch.tensor([feats.shape[1]]), table.num_slots)
+            out[v] = {k: a[0] for k, a in fetch(st).items()}
+        return out
+    from aaltoasr_tpu_torch.cli import stats
+    argv, shift_out, plain_out = args
+    _cli(stats.main, argv + ["-o", shift_out, "--device", "cpu"])
+    estep.shift_compile = lambda graph: graph
+    _cli(stats.main, argv + ["-o", plain_out, "--device", "cpu"])
+    return None
+
+
+def _profile_call(fn, device, frames: int) -> str:
+    """Kernel launches a frame and the device-busy share of one call of
+    ``fn`` over ``frames`` frames, from torch.profiler's device events
+    (as `_profile_steps`)."""
+    if device.type != "cuda":
+        return "profile not measured (CPU)"
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return "device events: not measured (the profiler saw none)"
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    busy = sum(e.time_range.end - e.time_range.start for e in dev)
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev))
+    return (f"{(len(dev) - copies) / frames:.1f} kernel launches and "
+            f"{copies / frames:.2f} copies or fills a frame, device busy "
+            f"{100.0 * busy / span:.1f}% of {span / 1e3:.1f} ms "
+            f"(profiler, one call)")
+
+
+def _floor_check(label, got, ref, other, keys, scaled=1e-6):
+    """``got`` (the card) against ``ref`` (the CPU, same FB form): each
+    key's largest deviation within twice the CPU's own spread between
+    its two FB forms (``other`` the second form) plus ``scaled`` of the
+    key's scale, and for the feature counts two frames more (a frame
+    counts where a posterior passes 1e-32, which float noise moves).
+    At T=1,000 and log-likelihoods near 1e5 float32 log posteriors
+    carry errors of ~sqrt(T) ulps, so two float32 orders of the same
+    sums differ by percents; the floor is measured in the same run.
+    Returns the report line; fails beyond the bound."""
+    parts = []
+    for k in keys:
+        a = np.asarray(ref[k], np.float64)
+        dev = float(np.abs(np.asarray(got[k], np.float64) - a).max())
+        floor = float(np.abs(np.asarray(other[k], np.float64) - a).max())
+        scale = max(float(np.abs(a).max()), 1e-30)
+        parts.append(f"{k} {dev / scale:.2e} (floor {floor / scale:.2e})")
+        if dev > 2 * floor + scaled * scale + 2 * (k == "feacount"):
+            fail(f"{label}: {k} deviates {dev:.4g} from the CPU's, beyond "
+                 f"twice the CPU's own spread {floor:.4g}")
+    return f"{label}: max |card - CPU| / scale: " + ", ".join(parts)
+
+
+def _same_numbers_check(label, got, ref, keys):
+    """The card against the CPU on the same inputs, at the tolerances of
+    `tests/test_torch_train.py` (the port against the reference on the
+    same inputs): each key's largest deviation within 2e-5 of its scale,
+    the moment sums within 1e-4, feature counts identical."""
+    parts = []
+    for k in keys:
+        a = np.asarray(ref[k], np.float64)
+        dev = float(np.abs(np.asarray(got[k], np.float64) - a).max())
+        scale = max(float(np.abs(a).max()), 1e-30)
+        tol = 0 if k == "feacount" else (1e-4 if "acc" in k else 2e-5)
+        parts.append(f"{k} {dev / scale:.2e}")
+        if dev > tol * scale:
+            fail(f"{label}: {k} deviates {dev:.4g} from the CPU's (scale "
+                 f"{scale:.4g}, tolerance {tol:g} of it)")
+    return f"{label}: max |card - CPU| / scale: " + ", ".join(parts)
+
+
+def _models_close(ref, ours, rtol=2e-3) -> str:
+    """`tests/test_golden_estimate.py:assert_models_close`: means,
+    covariances (relative to scale), weights, transitions."""
+    worst = {}
+    for name in ("means", "covars"):
+        a, b = getattr(ref, name), getattr(ours, name)
+        worst[name] = float(np.abs(a - b).max()) / max(
+            float(np.abs(a).max()), 1e-9)
+        if a.shape != b.shape or worst[name] > rtol:
+            fail(f"models differ in {name}: {worst[name]:.3g} of scale")
+    for s, ((ri, rw), (oi, ow)) in enumerate(zip(ref.mixtures, ours.mixtures)):
+        if not (np.array_equal(ri, oi) and np.allclose(rw, ow, rtol=rtol,
+                                                       atol=1e-7)):
+            fail(f"models differ in mixture {s}")
+    for s in ref.transitions:
+        rt, ot = sorted(ref.transitions[s]), sorted(ours.transitions[s])
+        if ([t for t, _ in rt] != [t for t, _ in ot] or not all(
+                abs(rp - op) <= 1e-6 + 1e-4 * abs(op)
+                for (_, rp), (_, op) in zip(rt, ot))):
+            fail(f"models differ in the transitions of state {s}")
+    return ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+
+
+class _StageClock(io.StringIO):
+    """A stderr that stamps each line it is written with the time since
+    it was made: `train`'s progress lines mark its stages' ends."""
+
+    def __init__(self):
+        super().__init__()
+        self.t0 = time.perf_counter()
+        self.stamps = []
+
+    def write(self, text):
+        self.stamps.append((time.perf_counter() - self.t0, text.strip()))
+        return super().write(text)
+
+
+def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
+                seconds=8.0, n_phn=100, clusters=256, reps=3) -> dict:
+    """[11] ML training on the card (no kernel of its own, and neither
+    K1 nor K2 may launch): (a) the E-step at bench.py's `estep_fps`
+    point in both FB forms, timed, profiled, peak memory, the first
+    utterance against the CPU; (b) `align`, `stats` and `estimate` on a
+    corpus at the bench's width, `stats` against the CPU; (c) `train`,
+    2 EM iterations with a split, durations and clusters, its first model
+    against (b)'s.  Returns the kernels' launch counts over the phase."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import align, estimate, stats, train
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.models.hmm import TransitionTable
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.synth import norm_stats, splice_cfg, write_wav
+    from aaltoasr_tpu_torch.train import estep
+    from aaltoasr_tpu_torch.train.accumulators import HmmStats, ML_BUF
+    from aaltoasr_tpu_torch.train.driver import fetch
+    t_phase = time.perf_counter()
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
+    cpu_estep = pool.submit(_train_cpu_job, "estep", point)
+
+    # (a) the E-step at the bench point, both FB forms
+    B, T = point["B"], point["T"]
+    model, table, pad, feats = _estep_inputs(**point)
+    scorer = GmmScorer.from_model(model, device=device)
+    x = torch.as_tensor(feats, device=device)
+    n = torch.full((B,), T, dtype=torch.int64, device=device)
+    first = {}                  # the card's first utterance, per FB form
+    for v in ("plain", "shift"):
+        g = estep.stack_graphs([_estep_graph(pad, v)] * B, device)
+
+        def call():
+            return estep.chain_stats(scorer, x, g, n, table.num_slots)
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = call()
+        sync(device)
+        peak = _peak_gib(device)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = call()
+            sync(device)
+            walls.append(time.perf_counter() - t0)
+        host = fetch(out)
+        first[v] = {k: a[0] for k, a in host.items()}
+        wall = float(np.median(walls))
+        fps = B * T / wall
+        lls = host["log_likelihood"]
+        if not np.all(np.isfinite(lls)) or np.any(lls <= -1e29):
+            fail(f"E-step ({v}): no valid path in the batch")
+        # occupancy a frame: 1 in exact arithmetic; float32 log
+        # posteriors at these log-likelihoods move it (reported, and held
+        # to the CPU's through the gamma key below)
+        mass = host["gamma"].sum(1) / T
+        print(f"[11] E-step ({v} FB) B={B} T={T} P={pad['pdf'].shape[0]} "
+              f"G={point['G']} K={point['K']} D={point['D']}: {fps:.0f} "
+              f"frames/s ({fps / 125:.1f}x real time; median of {reps} "
+              f"calls, {wall * 1e3:.1f} ms a call: "
+              + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+              + f"); occupancy a frame {mass.min():.4f}..{mass.max():.4f}"
+              f"; peak {peak}; " + _profile_call(call, device, T),
+              flush=True)
+        del out, host
+    cpu = cpu_estep.result()
+    keys = ("gamma", "mean_acc", "sec_acc", "mix_gamma", "mix_ll",
+            "trans_acc", "feacount")
+    for v in ("plain", "shift"):
+        other = "shift" if v == "plain" else "plain"
+        spread = ", ".join(
+            f"{k} {np.abs(cpu[v][k] - cpu[other][k]).max() / max(np.abs(cpu[v][k]).max(), 1e-30):.2e}"
+            for k in keys)
+        ll_card = float(first[v]["log_likelihood"])
+        ll_cpu = float(cpu[v]["log_likelihood"])
+        if abs(ll_card - ll_cpu) > 1e-5 * abs(ll_cpu):
+            fail(f"E-step ({v}): log-likelihood {ll_card} on the card, "
+                 f"{ll_cpu} on the CPU")
+        print(f"[11]   utterance 0, log-likelihood {ll_card:.3f} (card) "
+              f"{ll_cpu:.3f} (CPU); " + _same_numbers_check(
+                  f"E-step ({v} FB)", first[v], cpu[v], keys)
+              + f"; the CPU's two FB forms differ by {spread}", flush=True)
+
+    # (b) align, stats, estimate on a corpus at the bench's width
+    root = tempfile.mkdtemp(prefix="train", dir=os.environ.get("TMPDIR"))
+    p = lambda *names: os.path.join(root, *names)  # noqa: E731
+    rng = np.random.default_rng(5)
+    wavs = []
+    for u in range(n_wavs):
+        wavs.append(p(f"u{u}.wav"))
+        write_wav(wavs[-1], rng.normal(0, 1000, int(16000 * seconds)))
+    # the splice + LDA features, normalized on these WAVs (zero mean,
+    # unit variance: the random model's scale, as at the bench point)
+    raw = FeatureGenerator(FeatureConfig.parse(splice_cfg()), device=device)
+    frames = np.concatenate([raw.features(read_audio(w, 16000)[0]).cpu()
+                             .numpy() for w in wavs])
+    with open(p("feats.cfg"), "w") as f:
+        f.write(splice_cfg(norm=norm_stats(frames)))
+    model_io.write_model(p("am"), model)
+    lines = []
+    for u, wav in enumerate(wavs):
+        labels = rng.integers(0, point["S"] // 2, n_phn)
+        with open(p(f"u{u}.phn"), "w") as f:
+            f.write("".join(f"p{i}\n" for i in labels))
+        lines.append(f"audio={wav} transcript={p(f'u{u}.phn')} "
+                     f"alignment={p(f'u{u}.ali.phn')}")
+    with open(p("recipe"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    task = ["-b", p("am"), "-c", p("feats.cfg"), "-r", p("recipe")]
+    cpu_stats = pool.submit(_train_cpu_job, "stats",
+                            (task, p("cpu_shift"), p("cpu_plain")))
+    on = ["--device", device.type]
+    walls = {}
+    _, _, walls["align"] = _cli(align.main, task + on)
+    n_seg = sum(1 for _ in open(p("u0.ali.phn")))
+    _, _, walls["stats"] = _cli(stats.main, task + ["-o", p("card")] + on)
+    with open(p("stats.lst"), "w") as f:
+        f.write(p("card") + "\n")
+    _, _, walls["estimate"] = _cli(estimate.main, [
+        "-b", p("am"), "-L", p("stats.lst"), "-o", p("est"), "--ml",
+        "--minvar", "0.1"])
+
+    # (c) train: 2 EM iterations, a split, durations, clusters (the CPU
+    # side of (b) runs meanwhile)
+    clock = _StageClock()
+    argv = task + ["-w", p("work"), "--id", "m", "--num-iters", "2",
+                   "--split-frequency", "2", "--split-stop-iter", "2",
+                   "--split-minocc", "1", "--mllt-start-iter", "0",
+                   "--durations", "--dur-mincount", "2", "--num-clusters",
+                   str(clusters), "-i", "1"] + on
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(clock):
+        rc = train.main(argv)
+    sync(device)
+    t_train = time.perf_counter() - t0
+    if rc not in (0, None):
+        fail(f"train returned {rc}")
+
+    cpu_stats.result()
+    pool.shutdown()
+    dumps = {}
+    for name in ("card", "cpu_shift", "cpu_plain"):
+        dumps[name] = HmmStats.zeros(model, table)
+        dumps[name].load(p(name), table)
+    flat = {name: dict(
+        {k: getattr(d.buffers[ML_BUF], k) for k in keys if k != "trans_acc"},
+        trans_acc=d.trans_acc) for name, d in dumps.items()}
+    ll = {name: d.num_ll for name, d in dumps.items()}
+    if abs(ll["card"] - ll["cpu_shift"]) > 1e-4 * abs(ll["cpu_shift"]):
+        fail(f"stats: log-likelihood {ll['card']} on the card, "
+             f"{ll['cpu_shift']} on the CPU")
+    if dumps["card"].num_frames != dumps["cpu_shift"].num_frames:
+        fail("stats: frame counts differ between the card and the CPU")
+    print(f"[11] corpus: {n_wavs} WAVs x {seconds:g} s, {n_phn} labels "
+          f"each, splice + LDA features (D={point['D']}), the E-step "
+          f"point's model; align {walls['align']:.2f} s ({n_seg} segments "
+          f"in u0), stats {walls['stats']:.2f} s "
+          f"({dumps['card'].num_frames} frames, log-likelihood "
+          f"{ll['card']:.1f} card, {ll['cpu_shift']:.1f} CPU), estimate "
+          f"{walls['estimate']:.2f} s", flush=True)
+    print("[11]   " + _floor_check("stats dumps", flat["card"],
+                                   flat["cpu_shift"], flat["cpu_plain"],
+                                   keys), flush=True)
+
+    summary = [ln.split() for ln in open(p("work", "m.summary"))]
+    lls = [float(f[3]) for f in summary]
+    if len(lls) != 2 or not lls[1] > lls[0]:
+        fail(f"train: log-likelihood did not rise: {lls}")
+    gauss = [int(f[7]) for f in summary]
+    for ext in ("dur", "gcl"):
+        if not os.path.exists(p("work", f"m_2.{ext}")):
+            fail(f"train wrote no m_2.{ext}")
+    close = _models_close(model_io.read_model(p("est")),
+                          model_io.read_model(p("work", "m_1")))
+    marks = [(t, text) for t, text in clock.stamps
+             if text.startswith(("Iteration", "Duration"))]
+    stages, last = [], 0.0
+    for t, text in marks:
+        stages.append(f"{text.split(':')[0].split(' written')[0]} "
+                      f"{t - last:.2f} s")
+        last = t
+    stages.append(f"clusters {t_train - last:.2f} s")
+    print(f"[11] train, 2 EM iterations: {t_train:.2f} s ("
+          + "; ".join(stages) + f"); log-likelihood {lls[0]:.1f} -> "
+          f"{lls[1]:.1f}, Gaussians {gauss}; m_1 against estimate's "
+          f"model: {close} of scale", flush=True)
+
+    launches = {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+    if any(launches.values()):
+        fail(f"a TPU kernel launched on the training path: {launches}")
+    shutil.rmtree(root)
+    print(f"[11] launches over the phase {launches} (neither kernel is on "
+          f"this path); phase 11 took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -1653,6 +2042,7 @@ def main() -> int:
         phase_lattice(device, task, recognize_argv, card=card)
         stream = phase_stream(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
+    train_launches = phase_train(device, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -1668,6 +2058,7 @@ def main() -> int:
         # decode_stream run, its blocks and the kernel at a block's shape
         k["launches_phase7"] = {p: n[k["name"]] for p, n in adapt.items()}
         k["launches_phase10"] = s_launches[k["name"]]
+        k["launches_phase11"] = train_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
     print(json.dumps({"kernels": kernels}), flush=True)

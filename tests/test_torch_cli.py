@@ -2,7 +2,9 @@
 lattices, n-best lists and confidences), `decode` (with an n-gram or a
 lattice grammar) and the host SLF and LM tools on the recognize-CLI test
 task, against the JAX package's CLIs (CPU; the port's CLIs get
-``--device cpu``, since they default to the GPU)."""
+``--device cpu``, since they default to the GPU); and the device and
+refusal rules of every entry point, the training CLIs' included (their
+parity tests are `tests/test_torch_train_cli.py`)."""
 
 import inspect
 import re
@@ -35,6 +37,7 @@ from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+from aaltoasr_tpu_torch.train.driver import EStepDriver
 
 from tests.test_decoder import ARPA_TEXT, make_decode_task, synth_obs
 from tests.test_golden_morph_lattice import MORPHS, TEXTS
@@ -339,11 +342,23 @@ def test_lattice_tools_match_reference(tmp_path, capsys, monkeypatch, tool):
     (["--lookahead", "3"], None),        # context lookahead: now ported
     (["--engine", "dense", "--stateseg"], "item 5"),
     (["--engine", "dense", "--adapt", "vtln"], "adaptation"),
+    # the training CLIs (first element): the hmmnet half of item 5
+    (["stats", "-H"], "item 5"),
+    (["stats", "--mmi"], "item 5"),
+    (["stats", "--mpe"], "item 5"),
+    (["stats", "-M", "mpv"], "item 5"),
+    (["train", "-H"], "item 5"),
+    (["logl", "-H"], "item 5"),
 ])
 def test_unported_options_raise(tmp_path, capsys, extra, match):
     """Options still to port raise naming their ROADMAP item; a ported
     one (match None) prints the reference's lines."""
     recipe = _task(tmp_path)
+    if extra[0] in TRAINING_CLIS:
+        main, argv = _training_cli(tmp_path, recipe, extra[0])
+        with pytest.raises(NotImplementedError, match=match):
+            main(argv + extra[1:] + ["--device", "cpu"])
+        return
     if match is None:
         ref = _lines(capsys, j_recognize,
                      _args(tmp_path, recipe, "ref") + extra)
@@ -355,12 +370,33 @@ def test_unported_options_raise(tmp_path, capsys, extra, match):
         t_recognize(_port_args(tmp_path, recipe, "port") + extra)
 
 
-@pytest.mark.parametrize("cli", ["phone_probs", "recognize"])
+TRAINING_CLIS = ("stats", "align", "train", "logl")
+
+
+def _training_cli(tmp_path, recipe, cli):
+    """(main, argv) of a training CLI of the port on the task's files."""
+    import importlib
+    main = importlib.import_module(f"aaltoasr_tpu_torch.cli.{cli}").main
+    argv = ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
+            "-r", str(recipe)]
+    extra = {"stats": ["-o", str(tmp_path / "port" / "st")],
+             "train": ["-w", str(tmp_path / "port" / "work")]}
+    return main, argv + extra.get(cli, [])
+
+
+@pytest.mark.parametrize("cli", ["phone_probs", "recognize"]
+                         + list(TRAINING_CLIS))
 def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
     """With no GPU and no --device the CLIs raise; they never fall back
     to the CPU on their own (and run with --device cpu, as above)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     recipe = _task(tmp_path)
+    if cli in TRAINING_CLIS:
+        main, argv = _training_cli(tmp_path, recipe, cli)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        assert not (tmp_path / "port").exists()
+        return
     if cli == "phone_probs":
         (tmp_path / "port").mkdir()
         main, argv = t_phone_probs, [
@@ -376,7 +412,7 @@ def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
 
 @pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch, BeamSearch,
                                  Toolbox, FeatureGenerator,
-                                 GmmScorer.from_model])
+                                 GmmScorer.from_model, EStepDriver])
 def test_entry_points_default_to_cuda(monkeypatch, cls):
     """The public constructors default to the GPU and, with none, raise
     before reading anything."""
@@ -387,5 +423,7 @@ def test_entry_points_default_to_cuda(monkeypatch, cls):
             cls("no-model-read-before-the-device-check", "feats.cfg")
         elif cls in (DenseBeamSearch, BeamSearch):
             cls(None, None, None)
+        elif cls is EStepDriver:
+            cls(None, "no-config-read-before-the-device-check")
         else:               # a config path / a model never read
             cls("no-file-read-before-the-device-check")

@@ -230,18 +230,43 @@ for lm_call, la in (("interpolated_ngram_read", 2), ("ngram_read", 3)):
     t.stream_result()
 """
 
+TRAIN_CALLS = """
+from aaltoasr_tpu_torch.cli import (align, combine_stats, dur_est, estimate,
+                                    gcluster, logl, stats, train)
+write_model(p("tm"), synth.random_model(G=16, S=8, D=39, K=2))
+synth.write_wav(p("t.wav"),
+                np.random.default_rng(1).normal(0, 300, 8000).astype("<i2"))
+open(p("t.phn"), "w").write("p0\\np1\\np2\\n")
+open(p("t.rcp"), "w").write(
+    f"audio={p('t.wav')} transcript={p('t.phn')} alignment={p('t.ali')}\\n")
+open(p("st.lst"), "w").write(p("st") + "\\n")
+m = ["-b", p("tm"), "-c", p("f.cfg"), "-r", p("t.rcp")]
+with contextlib.redirect_stdout(io.StringIO()), \\
+        contextlib.redirect_stderr(io.StringIO()):
+    align.main(m + ["--device", "cpu"])
+    stats.main(m + ["-o", p("st"), "--device", "cpu"])
+    combine_stats.main(["-b", p("tm"), "-L", p("st.lst"), "-o", p("st2")])
+    estimate.main(["-b", p("tm"), "-L", p("st.lst"), "-o", p("tm2"), "--ml"])
+    logl.main(m + ["--device", "cpu"])
+    dur_est.main(["-b", p("tm"), "-r", p("t.rcp"), "-O", "-o", p("t.dur")])
+    gcluster.main(["-b", p("tm"), "-C", "4", "-o", p("t.gcl")])
+    train.main(m + ["-w", p("w"), "--num-iters", "1", "--mllt-start-iter",
+                    "0", "--device", "cpu", "-i", "0"])
+assert os.path.exists(p("w/model_1.ph"))
+"""
+
 
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports without
     pulling jax or the JAX package into the process, nor does a call of
-    each lattice and streaming entry point."""
+    each lattice, streaming and training entry point."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import aaltoasr_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'aaltoasr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n" + LATTICE_CALLS + STREAM_CALLS +
+        "import chip_smoke\n" + LATTICE_CALLS + STREAM_CALLS + TRAIN_CALLS +
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aaltoasr_tpu' or m.startswith('aaltoasr_tpu.')]\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
@@ -254,6 +279,12 @@ def test_port_imports_no_jax():
               "decoder.intergram", "decoder.morpheus", "decoder.morphset",
               "formats.treegram_bin", "cli.lattice_rescore",
               "cli.morph_lattice", "cli.arpa2bin", "cli.bin2arpa",
-              "decoder.classes", "cli.decode_stream"):
+              "decoder.classes", "cli.decode_stream", "ops.chain",
+              "models.hmm", "formats.phn", "train.estep", "train.driver",
+              "train.accumulators", "train.estimate", "train.split",
+              "train.ebw", "train.durations", "train.gcluster",
+              "train.mllt", "cli.align", "cli.stats", "cli.estimate",
+              "cli.train", "cli.combine_stats", "cli.logl", "cli.dur_est",
+              "cli.gcluster"):
         assert "aaltoasr_tpu_torch." + m in res["modules"]
     assert len(res["modules"]) >= 35
