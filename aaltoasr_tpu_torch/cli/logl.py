@@ -1,8 +1,7 @@
 """logl: total data log-likelihood given a model (`aku/logl.cc`).
 
-Counterpart of `aaltoasr_tpu/cli/logl.py`, plus ``--device`` (default
-``cuda``).  ``-H`` (hmmnet= networks) raises `NotImplementedError`: it
-belongs to the hmmnet half of training.
+Counterpart of `aaltoasr_tpu/cli/logl.py` (``-H``: the recipe's hmmnet=
+networks), plus ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.model_io import read_model
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.train.driver import EStepDriver
-from aaltoasr_tpu_torch.train.estep import later
 
 
 def main(argv=None) -> int:
@@ -36,15 +34,14 @@ def main(argv=None) -> int:
                         "unless cpu is given)")
     args = p.parse_args(argv)
 
-    if args.hmmnet:
-        raise later("training on hmmnet= networks (-H)")
     device = resolve_device(args.device)
     model = load_model(args)
     if isinstance(model, str):
         model = read_model(model)
     driver = EStepDriver(model, args.config, mode=args.mode, device=device)
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
-    stats = driver.run_recipe(recipe, info=args.info)
+    stats = driver.run_recipe(recipe, info=args.info,
+                              use_hmmnet=args.hmmnet)
     print(f"{stats.num_ll:.6f} {stats.num_frames}")
     return 0
 

@@ -4,13 +4,13 @@ Counterpart of `aaltoasr_tpu/cli/recognize.py`, with the same flags and
 rectool's reuse semantics (rectool.py:613-634, 1045-1056): LNA
 generation through the scoring pipeline (skip-if-exists), then decoding
 through `Toolbox` with 1-best output, and on request SLF lattices
-(``<lna>.slf``), n-best lists and confusion-network confidences: the
-exact engine one utterance at a time, or the dense engine in batches;
-``--engine auto`` (the default) picks exact below 100k tree nodes.  It
-runs on ``--device`` (default ``cuda``; with no GPU it raises unless
-``--device cpu`` is given).  Adaptation and state segmentations are not
-ported yet and raise NotImplementedError naming the ROADMAP item that
-brings them.
+(``<lna>.slf``), n-best lists, confusion-network confidences and state
+segmentations (``<lna>.stateseg``): the exact engine one utterance at a
+time, or the dense engine in batches; ``--engine auto`` (the default)
+picks exact below 100k tree nodes.  It runs on ``--device`` (default
+``cuda``; with no GPU it raises unless ``--device cpu`` is given).
+Adaptation is not ported yet and raises NotImplementedError naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -35,9 +35,6 @@ AUTO_ENGINE_NODE_THRESHOLD = 100_000
 _LATER = {
     "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
              "adaptation)",
-    "stateseg": "state segmentation is not ported yet (ROADMAP queue 1 "
-                "item 5: training, its hmmnet half, whose HMM networks it "
-                "aligns on)",
 }
 
 
@@ -101,7 +98,7 @@ def main(argv=None) -> int:
     p.add_argument("--nbest", type=int, default=0,
                    help="print n-best lists")
     p.add_argument("--stateseg", action="store_true",
-                   help="write state segmentations (not ported)")
+                   help="write state segmentations (<lna>.stateseg)")
     p.add_argument("--confidence", action="store_true",
                    help="print per-word confusion-network confidences")
     p.add_argument("--we-prewalk", type=int, default=0,
@@ -141,8 +138,6 @@ def main(argv=None) -> int:
 
     if args.adapt:
         raise NotImplementedError(_LATER["adapt"])
-    if args.stateseg:
-        raise NotImplementedError(_LATER["stateseg"])
 
     device = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
@@ -218,6 +213,9 @@ def main(argv=None) -> int:
             text = text.replace("<s>", "").replace("</s>", "")
             text = " ".join(text.split())
         print(f"{text} ({key})")
+        if args.stateseg:
+            lp, _ = read_lna(lna_path)
+            t.write_state_segmentation(lna_path + ".stateseg", res, lp)
         if need_lattice:
             g = res.word_graph()
             if args.lattices:

@@ -2,11 +2,11 @@
 
 Counterpart of `aaltoasr_tpu/cli/stats.py` (`aku/stats.cc:309-470`):
 ``-b/-g/-m/-p`` model, ``-c`` config, ``-r`` recipe, ``-o`` output base,
-``-M bw|vit``, ``-O`` (fixed alignments), ``--fullstats``,
-``--device-batch``, ``-B/-I`` sharding, plus ``--device`` (default
-``cuda``; with no GPU it raises unless ``--device cpu`` is given).  The
-hmmnet half of training is not ported yet: ``-H``, ``--mmi``, ``--mpe``
-and ``-M mpv`` raise `NotImplementedError`.
+``-M bw|vit|mpv``, ``-O`` (fixed alignments), ``--fullstats``,
+``--device-batch``, ``-B/-I`` sharding, ``-H`` hmmnet lattice E-steps,
+``--mmi`` (den-hmmnet= into the MMI buffer) and ``--mpe --errmode``
+(the MPE num/den buffers), plus ``--device`` (default ``cuda``; with no
+GPU it raises unless ``--device cpu`` is given).
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.model_io import read_model
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.train.driver import EStepDriver
-from aaltoasr_tpu_torch.train.estep import later
 
 
 def main(argv=None) -> int:
@@ -69,13 +68,6 @@ def main(argv=None) -> int:
                         "unless cpu is given)")
     args = p.parse_args(argv)
 
-    for flag, what in ((args.hmmnet, "training on hmmnet= networks (-H)"),
-                       (args.mmi, "MMI statistics (--mmi)"),
-                       (args.mpe, "MPE statistics (--mpe)"),
-                       (args.mode == "mpv",
-                        "multipath Viterbi statistics (-M mpv)")):
-        if flag:
-            raise later(what)
     device = resolve_device(args.device)
     model = load_model(args)
     if isinstance(model, str):
@@ -85,8 +77,12 @@ def main(argv=None) -> int:
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
     if args.ophn:
         stats = driver.run_recipe_aligned(recipe, info=args.info)
-    elif args.fullstats or args.mode != "bw":
-        stats = driver.run_recipe(recipe, info=args.info)
+    elif (args.hmmnet or args.mmi or args.mpe or args.fullstats
+            or args.mode != "bw"):
+        stats = driver.run_recipe(recipe, info=args.info,
+                                  use_hmmnet=args.hmmnet, mmi=args.mmi,
+                                  mpe=args.mpe, errmode=args.errmode,
+                                  max_seg_dur=args.max_seg_dur)
     else:
         stats = driver.run_recipe_batched(
             recipe, batch_size=args.device_batch, info=args.info)

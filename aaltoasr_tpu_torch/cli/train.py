@@ -8,7 +8,8 @@ already exists.  Stages:
 1. a full-covariance initial model is converted to diagonal
    (train.pl:143-147, gconvert -d);
 2. ``--num-iters`` EM iterations: the E-step over the recipe's
-   transcript chains on ``--device`` (default ``cuda``; with no GPU it
+   transcript chains (or, with ``-H``, its hmmnet= networks) on
+   ``--device`` (default ``cuda``; with no GPU it
    raises unless ``--device cpu`` is given), the ML M-step, MLLT every
    ``--mllt-frequency`` iterations from ``--mllt-start-iter`` (full
    statistics, the transform folded into the model and a new .cfg), and
@@ -16,9 +17,6 @@ already exists.  Stages:
    ``--split-stop-iter`` (train.pl:86-176 defaults 22/2/18);
 3. Viterbi alignment + gamma duration model estimation (``--durations``);
 4. Gaussian clustering (``--num-clusters``, .gcl).
-
-``-H`` (hmmnet= networks) belongs to the hmmnet half of training and
-raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -36,7 +34,6 @@ from aaltoasr_tpu_torch.formats.model_io import (
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.train.accumulators import ML_BUF
 from aaltoasr_tpu_torch.train.driver import EStepDriver
-from aaltoasr_tpu_torch.train.estep import later
 from aaltoasr_tpu_torch.train.estimate import estimate_ml
 from aaltoasr_tpu_torch.train.gcluster import cluster_gaussians, write_gcl
 from aaltoasr_tpu_torch.train.mllt import (
@@ -95,8 +92,6 @@ def main(argv=None) -> int:
                         "unless cpu is given)")
     args = p.parse_args(argv)
 
-    if args.hmmnet:
-        raise later("training on hmmnet= networks (-H)")
     device = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
@@ -146,8 +141,9 @@ def main(argv=None) -> int:
         model = read_model(model_base)
         driver = EStepDriver(model, cfg_path, mode=args.mode,
                              full_stats=mllt_flag, device=device)
-        if mllt_flag:
-            stats = driver.run_recipe(recipe, info=max(0, args.info - 1))
+        if args.hmmnet or mllt_flag:
+            stats = driver.run_recipe(recipe, info=max(0, args.info - 1),
+                                      use_hmmnet=args.hmmnet)
         else:
             stats = driver.run_recipe_batched(
                 recipe, batch_size=args.device_batch,

@@ -19,6 +19,7 @@ from aaltoasr_tpu_torch.decoder.classes import WordClasses
 from aaltoasr_tpu_torch.decoder.lexicon import PrefixTree
 from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa, NGramFsa
 from aaltoasr_tpu_torch.decoder.search import SearchConfig
+from aaltoasr_tpu_torch.formats.fst import Fst, FstArc
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, HmmPhone
 from aaltoasr_tpu_torch.models.hmm import LinearChain, TransitionTable
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
@@ -117,8 +118,21 @@ def linear_chain(ref) -> LinearChain:
     return _copy_fields(LinearChain, ref)
 
 
+def fst(ref) -> Fst:
+    """A reference MIT-FST network, arc by arc."""
+    return _copy_fields(Fst, ref, arcs=[_copy_fields(FstArc, a)
+                                        for a in ref.arcs])
+
+
+def hmmnet_graph(ref: dict) -> dict:
+    """A graph dict compiled by the reference (`compile_hmmnet`,
+    `pad_hmmnet`, `shift_compile`): numpy copies of its tables."""
+    return {k: np.array(v) for k, v in ref.items()}
+
+
 def hmm_stats(ref) -> HmmStats:
-    """A reference `HmmStats` with each of its buffers."""
+    """A reference `HmmStats` with each of its buffers (ML, MMI, MPE
+    numerator and denominator), its likelihoods and MPE score."""
     buffers = {b: _copy_fields(BufferStats, buf)
                for b, buf in ref.buffers.items()}
     return _copy_fields(HmmStats, ref, buffers=buffers)

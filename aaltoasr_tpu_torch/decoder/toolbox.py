@@ -8,10 +8,9 @@ GPU unless the caller passes ``device="cpu"``.  It has the reference
 package's whole surface: the loading calls (ARPA, binary, interpolated
 and lookahead LMs, HTK lattices as grammars, word classes, the HMM and
 duration files), the search knobs and pruning beams, the API-parity
-flags, and push-model decoding (`use_one_frame_acoustics`,
-`set_one_frame`, `run`, `stream_result`).  State segmentation is not
-ported yet (ROADMAP queue 1 item 5: training, its hmmnet half, whose
-HMM networks it aligns on; training on transcript chains is ported).
+flags, push-model decoding (`use_one_frame_acoustics`,
+`set_one_frame`, `run`, `stream_result`) and state segmentations of a
+result (`decoder/stateseg.py`, the masked Viterbi on ``device``).
 """
 
 from __future__ import annotations
@@ -29,11 +28,14 @@ from aaltoasr_tpu_torch.decoder.ngram import InterNGramFsa, NGramFsa
 from aaltoasr_tpu_torch.decoder.search import (
     BeamSearch, SearchConfig, StreamingDecoder)
 from aaltoasr_tpu_torch.decoder.slf import SlfLattice, lattice_grammar
+from aaltoasr_tpu_torch.decoder.stateseg import (
+    state_segmentation, write_state_segmentation)
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.arpa import ArpaLM, read_arpa
 from aaltoasr_tpu_torch.formats.lna import read_lna
 from aaltoasr_tpu_torch.formats.model_io import HmmModel, read_dur, read_ph
 from aaltoasr_tpu_torch.formats.treegram_bin import read_bin
+from aaltoasr_tpu_torch.models.hmm import TransitionTable
 
 
 class Toolbox:
@@ -61,12 +63,16 @@ class Toolbox:
         self._ignore_case = False
         self._generate_word_graph = False
         self._end_frame = -1
+        self._lex_entries: list | None = None
+        self._ss_table = None
+        self._keep_stateseg = False
 
     # -- model/lexicon/LM loading (Toolbox.hh:42-108) ---------------------
     def lex_read(self, path) -> None:
         entries = read_lexicon(path)
         if self._ignore_case:
             entries = [replace(e, word=e.word.lower()) for e in entries]
+        self._lex_entries = entries
         self.tree = build_prefix_tree(
             self.model, entries,
             silence_is_word=self._silence_is_word,
@@ -393,6 +399,50 @@ class Toolbox:
         if self._end_frame >= 0:
             lp = lp[:self._end_frame]
         return self.decode(lp, lattice=lattice or self._generate_word_graph)
+
+    # -- state segmentation (Toolbox.hh:261-265, 334) ----------------------
+    def set_keep_state_segmentation(self, value) -> None:
+        """Keep enough decode context to emit state-level segments."""
+        self._keep_stateseg = bool(value)
+
+    def state_segmentation(self, result, state_log_probs,
+                           n_frames: int | None = None) -> list:
+        """State segments of a decode result: re-aligns the 1-best word
+        sequence with the hmmnet Viterbi on the Toolbox's device (see
+        decoder/stateseg.py; the reference threads a StateHistory chain
+        through the search, `TokenPassSearch.cc:668-680`)."""
+        if self._lex_entries is None:
+            raise RuntimeError("lexicon not loaded (lex_read)")
+        if self._ss_table is None:
+            self._ss_table = TransitionTable.from_model(self.model)
+        prons: dict = {}
+        sil_prons: list = []
+        for e in self._lex_entries:
+            if not e.phones:
+                continue
+            is_sil = (e.word == "_" or (not self._silence_is_word
+                                        and e.word.startswith("_")))
+            if is_sil:
+                sil_prons.append(e.phones)
+            else:
+                prons.setdefault(e.word, []).append(e.phones)
+        words = result.words if hasattr(result, "words") else result
+        words = [w for w in words
+                 if w not in (self._sentence_start, self._sentence_end)]
+        if n_frames is None:
+            n_frames = state_log_probs.shape[0]
+        return state_segmentation(
+            self.model, self._ss_table, state_log_probs, n_frames,
+            [prons[w] for w in words], silence_prons=sil_prons,
+            device=self.device)
+
+    def write_state_segmentation(self, file_name: str, result,
+                                 state_log_probs,
+                                 n_frames: int | None = None) -> None:
+        """``start end state`` lines (Toolbox.hh:334)."""
+        write_state_segmentation(
+            file_name,
+            self.state_segmentation(result, state_log_probs, n_frames))
 
     # -- streaming (OneFrameAcoustics; Toolbox.hh:123-145) -----------------
     def use_one_frame_acoustics(self) -> StreamingDecoder:

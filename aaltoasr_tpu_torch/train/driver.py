@@ -7,9 +7,11 @@ E-step (`train/estep.py`) on ``device`` and reduces into
 reference-format accumulators.  ``device`` defaults to the GPU and, with
 none present, raises before anything is read.  Graphs are stacked on the
 host and uploaded once per bucket; each batch's statistics come back in
-one fetch per key.  HMM-network E-steps (``use_hmmnet``) and the
-discriminative buffers (``mmi``, ``mpe``) belong to the hmmnet half of
-training and raise `NotImplementedError`.
+one fetch per key.  HMM networks (``hmmnet=`` / ``den-hmmnet=`` MIT-FST
+files, `models/hmmnet.py`) run one utterance per device pass, as the
+reference's do: the ML buffer from the numerator network, the MMI buffer
+from the denominator, and the MPE num/den buffers from
+`train/mpe.py`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from aaltoasr_tpu_torch.device import resolve_device
+from aaltoasr_tpu_torch.formats.fst import read_fst
 from aaltoasr_tpu_torch.formats.model_io import HmmModel
 from aaltoasr_tpu_torch.formats.phn import read_phn
 from aaltoasr_tpu_torch.formats.recipe import Recipe
@@ -28,10 +31,13 @@ from aaltoasr_tpu_torch.frontend.audio import read_audio
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.hmm import (
     TransitionTable, build_chain, pad_chain)
+from aaltoasr_tpu_torch.models.hmmnet import compile_hmmnet, pad_hmmnet
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
 from aaltoasr_tpu_torch.train import estep
+from aaltoasr_tpu_torch.train import mpe as mpe_mod
 from aaltoasr_tpu_torch.train.accumulators import (
-    HmmStats, ML_BUF, PDF_ML_FULL_STATS, PDF_ML_STATS)
+    HmmStats, ML_BUF, MMI_BUF, MPE_DEN_BUF, MPE_NUM_BUF, PDF_ML_FULL_STATS,
+    PDF_ML_STATS, PDF_MMI_STATS, PDF_MPE_DEN_STATS, PDF_MPE_NUM_STATS)
 
 
 def fetch(dstats: dict) -> dict:
@@ -82,6 +88,14 @@ def device_stats_to_hmm_stats(model: HmmModel, table: TransitionTable,
     return stats
 
 
+def _fetch_mpe(out: dict) -> dict:
+    """One utterance's MPE statistics (`train/mpe.py`) as numpy."""
+    return {"num": {k: v[0] for k, v in fetch(out["num"]).items()},
+            "den": {k: v[0] for k, v in fetch(out["den"]).items()},
+            "log_likelihood": float(out["log_likelihood"][0]),
+            "avg_accuracy": float(out["avg_accuracy"][0])}
+
+
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
 
@@ -100,8 +114,6 @@ class EStepDriver:
                  pos_bucket: int = 64, full_stats: bool = False,
                  device: torch.device | str = "cuda"):
         self.device = resolve_device(device)
-        if mode == "mpv":
-            raise estep.later("multipath Viterbi statistics (-M mpv)")
         self.model = model
         self.table = TransitionTable.from_model(model)
         self.fg = FeatureGenerator(feature_config, device=self.device)
@@ -109,6 +121,9 @@ class EStepDriver:
         self.mode = mode
         self._phone_id = {p.label: i
                           for i, p in enumerate(model.phones)}
+        self._membership = None
+        self._center_class = None
+        self._n_center = 0
         self.full_stats = full_stats
         self.time_bucket = time_bucket
         self.pos_bucket = pos_bucket
@@ -135,22 +150,130 @@ class EStepDriver:
         out["phone"] = phone
         return out
 
-    def _run_batch(self, feats, T, graphs, full_stats: bool = False):
+    def graph_from_fst(self, fst) -> dict:
+        """The shift-compiled padded graph of an HMM network (host
+        numpy): fan at least 4, positions padded to ``pos_bucket``, and
+        a model phone index per position (the mpfe-cps/mpfe modes)."""
+        g, emit = compile_hmmnet(fst, self.table)
+        P = int(g["num_positions"])
+        P_pad = _round_up(max(P, 1), self.pos_bucket)
+        F = max(g["in_src"].shape[1], 4)
+        out = estep.shift_compile(pad_hmmnet(g, P_pad, fan=F))
+        labels = [fst.arcs[ai].label for ai in emit] + [""] * (P_pad - P)
+        out["phone"] = np.asarray([self._phone_id.get(lbl, 0)
+                                   for lbl in labels], np.int32)
+        return out
+
+    def _run_batch(self, feats, T, graphs, full_stats: bool = False,
+                   arc_feacount: bool = False):
         """Batched E-step on the device: feats [B, T_pad, D], T [B] frame
         counts, graphs stacked on the device -> fetched numpy stats."""
         n = torch.as_tensor(np.asarray(T, np.int64), device=self.device)
         return fetch(estep.chain_stats(
             self.scorer, feats, graphs, n, self.table.num_slots, self.mode,
-            full_stats=full_stats))
+            full_stats=full_stats, arc_feacount=arc_feacount))
+
+    def _run_graph(self, feats, T, graph, arc_feacount: bool = False):
+        """One utterance (padded features on the device, a host graph)
+        -> its numpy statistics."""
+        out = self._run_batch(feats[None], [T],
+                              estep.stack_graphs([graph], self.device),
+                              full_stats=self.full_stats,
+                              arc_feacount=arc_feacount)
+        return {k: v[0] for k, v in out.items()}
 
     def utterance_stats(self, samples: np.ndarray, labels: list) -> dict:
         """One utterance's statistics (numpy, transcript chain)."""
         feats, T = self._padded_features(samples)
-        graph = estep.stack_graphs([self._graph_from_chain(labels)],
-                                   self.device)
-        out = self._run_batch(feats[None], [T], graph,
-                              full_stats=self.full_stats)
-        return {k: v[0] for k, v in out.items()}
+        return self._run_graph(feats, T, self._graph_from_chain(labels))
+
+    def _mpe_stats_for(self, feats, T, num_graph, num_fst, den_fst,
+                       errmode: str, max_seg_dur: int) -> dict:
+        """The --mpe error mode of one utterance (stats.cc:676-721) ->
+        numpy statistics: frame modes run on the device; segment modes
+        build the accuracy table on the host from the numerator Viterbi
+        alignment (`segment_table`)."""
+        dev = self.device
+        den_graph = self.graph_from_fst(den_fst)
+        n = torch.tensor([T], device=dev)
+        x = feats[None]
+        if errmode in ("mpfe-pdf", "mpfe-cps", "mpfe"):
+            if self._membership is None:
+                self._membership = torch.as_tensor(
+                    mpe_mod.phone_membership(self.model), device=dev)
+            return _fetch_mpe(mpe_mod.mpe_stats(
+                self.scorer, x, estep.stack_graphs([num_graph], dev),
+                estep.stack_graphs([den_graph], dev), n,
+                self.table.num_slots, mode=errmode,
+                membership=self._membership))
+        acc, den_cls, den_graph = self.segment_table(
+            feats, T, num_graph, num_fst, den_graph, den_fst, errmode,
+            max_seg_dur)
+        return _fetch_mpe(mpe_mod.mpe_stats_seg(
+            self.scorer, x, None, estep.stack_graphs([den_graph], dev), n,
+            self.table.num_slots, acc, den_cls, max_seg_dur))
+
+    def segment_table(self, feats, T, num_graph, num_fst, den_graph,
+                      den_fst, errmode: str, max_seg_dur: int):
+        """The segment modes' inputs (mpe / mwe / snfe) of one utterance:
+        (accuracy table [1, T_pad+1, D+1, C] and denominator classes
+        [1, P] on the device, the denominator graph with its segment
+        instances).  The table is built on the host from the numerator
+        Viterbi alignment: one fetch of the path."""
+        dev = self.device
+        if errmode == "mwe":
+            if (num_fst is None or not num_fst.word_names
+                    or not den_fst.word_names):
+                raise ValueError(
+                    "--errmode mwe needs word-level hmmnets (numerator "
+                    "and denominator built from word graphs)")
+            names = sorted(set(num_fst.word_names)
+                           | set(den_fst.word_names))
+            cid = {w: i for i, w in enumerate(names)}
+            num_wi = num_graph["word_inst"]
+            den_wi = den_graph["word_inst"]
+            num_cls = np.asarray(
+                [cid[num_fst.word_names[i]] if i >= 0 else 0
+                 for i in num_wi], np.int32)
+            den_cls = np.asarray(
+                [cid[den_fst.word_names[i]] if i >= 0 else 0
+                 for i in den_wi], np.int32)
+            num_inst = np.where(num_wi >= 0, num_wi,
+                                num_wi.shape[0] + np.arange(len(num_wi)))
+            den_inst = np.where(den_wi >= 0, den_wi,
+                                den_wi.shape[0] + np.arange(len(den_wi)))
+            num_graph = dict(num_graph, inst=num_inst.astype(np.int32))
+            den_graph = dict(den_graph, inst=den_inst.astype(np.int32))
+            n_classes = len(names)
+        else:
+            # phone classes: distinct center phones of the model
+            if self._center_class is None:
+                centers = sorted({mpe_mod.extract_center_phone(p.label)
+                                  for p in self.model.phones})
+                cidx = {c: i for i, c in enumerate(centers)}
+                self._center_class = np.asarray(
+                    [cidx[mpe_mod.extract_center_phone(p.label)]
+                     for p in self.model.phones], np.int32)
+                self._n_center = len(centers)
+            num_cls = self._center_class[num_graph["phone"]]
+            den_cls = self._center_class[den_graph["phone"]]
+            n_classes = self._n_center
+
+        # numerator Viterbi alignment -> reference segments
+        ng = estep.stack_graphs([num_graph], dev)
+        gll = self.scorer.gaussian_log_likelihoods(feats[None].float())
+        path, _ = estep.masked_viterbi(
+            mpe_mod.search_obs(self.scorer, gll, ng), ng,
+            torch.tensor([T], device=dev))
+        del gll
+        ref_segs = mpe_mod.ref_segments_from_path(
+            path[0].cpu().numpy(), num_graph["inst"], num_cls, T)
+        acc = mpe_mod.segment_accuracy_table(
+            errmode, ref_segs, T, max_seg_dur, n_classes,
+            pad_frames=int(feats.shape[0]))
+        return (torch.as_tensor(acc, device=dev)[None],
+                torch.as_tensor(den_cls.astype(np.int64), device=dev)[None],
+                den_graph)
 
     def run_recipe_batched(self, recipe: Recipe, batch_size: int = 8,
                            info: int = 0) -> HmmStats:
@@ -283,28 +406,83 @@ class EStepDriver:
 
     def run_recipe(self, recipe: Recipe, info: int = 0,
                    use_hmmnet: bool = False,
-                   mmi: bool = False, mpe: bool = False) -> HmmStats:
+                   mmi: bool = False, mpe: bool = False,
+                   errmode: str = "mpe",
+                   max_seg_dur: int = 64) -> HmmStats:
         """Accumulate statistics over a recipe shard, one utterance per
-        device pass (the path of `-M vit` and ``full_stats``)."""
-        if use_hmmnet:
-            raise estep.later("training on hmmnet= networks (-H)")
-        if mmi or mpe:
-            raise estep.later("discriminative statistics (--mmi/--mpe)")
-        mode = PDF_ML_STATS | (PDF_ML_FULL_STATS if self.full_stats else 0)
+        device pass (the path of `-M vit|mpv`, ``full_stats`` and the
+        hmmnet/discriminative statistics).
+
+        use_hmmnet: read hmmnet= FSTs instead of transcripts (-H);
+        mmi: additionally run the den-hmmnet= network into the MMI
+        buffer (stats.cc --mmi path);
+        mpe: MPE statistics into the MPE num/den buffers (stats.cc
+        --mpe); errmode selects the SegErrorEvaluator mode: mwe / mpe /
+        mpfe-pdf / mpfe-cps / mpfe / snfe (stats.cc:346,489-496).
+        max_seg_dur bounds the duration-augmented state of the
+        segment-level modes.
+        """
+        mode = (PDF_ML_STATS | (PDF_MMI_STATS if mmi else 0)
+                | (PDF_ML_FULL_STATS if self.full_stats else 0)
+                | ((PDF_MPE_NUM_STATS | PDF_MPE_DEN_STATS)
+                   if mpe else 0))
         total = HmmStats.zeros(self.model, self.table, mode)
         for rinfo in recipe:
             if info > 0:
                 print(f"Processing file: {rinfo.audio_path}",
                       file=sys.stderr)
             samples, _ = read_audio(rinfo.audio_path, self.fg.sample_rate)
+            feats, T = self._padded_features(samples)
+            num_fst = None
+            if use_hmmnet and rinfo.hmmnet_path:
+                num_fst = read_fst(rinfo.hmmnet_path)
+                graph = self.graph_from_fst(num_fst)
+            else:
+                graph = self._graph_from_chain(
+                    [e.label for e in read_phn(rinfo.transcript_path)])
+            # the discriminative path accumulates per SEGMENTED ARC
+            # (collect_lattice_stats, stats.cc:225-306), so feacount
+            # counts live (frame, arc) pairs there; the ML-only path
+            # goes through the per-(frame, pdf) Segmentator maps
             utt = device_stats_to_hmm_stats(
-                self.model, self.table, self.utterance_stats(
-                    samples, [e.label for e in
-                              read_phn(rinfo.transcript_path)]), mode)
+                self.model, self.table,
+                self._run_graph(feats, T, graph, arc_feacount=mmi or mpe),
+                mode)
+            if mmi or mpe:
+                # collect_lattice_stats has no transition branch: the
+                # reference's discriminative path leaves the .phs counts
+                # at zero even with -t (stats.cc:225-306)
+                utt.trans_acc[:] = 0.0
             if _failed(utt.num_ll):
                 print(f"Warning: no valid path for "
                       f"{rinfo.audio_path}; skipping", file=sys.stderr)
                 self.failed_utterances.append(rinfo.audio_path)
                 continue
+            if (mmi or mpe) and not rinfo.den_hmmnet_path:
+                raise ValueError(
+                    f"--mmi/--mpe requires den-hmmnet= in the recipe "
+                    f"(missing for {rinfo.audio_path})")
+            if mmi:
+                den = self._run_graph(
+                    feats, T,
+                    self.graph_from_fst(read_fst(rinfo.den_hmmnet_path)),
+                    arc_feacount=True)
+                device_stats_to_hmm_stats(self.model, self.table, den, mode,
+                                          buffer_id=MMI_BUF, stats=utt)
+            if mpe:
+                out = self._mpe_stats_for(
+                    feats, T, graph, num_fst,
+                    read_fst(rinfo.den_hmmnet_path), errmode, max_seg_dur)
+                for buf_id, key in ((MPE_NUM_BUF, "num"),
+                                    (MPE_DEN_BUF, "den")):
+                    d = dict(out[key])
+                    d["trans_acc"] = np.zeros(self.table.num_slots)
+                    d["log_likelihood"] = out["log_likelihood"]
+                    d["num_frames"] = T
+                    device_stats_to_hmm_stats(
+                        self.model, self.table, d, mode,
+                        buffer_id=buf_id, stats=utt)
+                utt.den_ll = out["avg_accuracy"]
+                utt.mpe_score += out["avg_accuracy"]
             total.add(utt)
         return total

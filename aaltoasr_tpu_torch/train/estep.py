@@ -20,9 +20,10 @@ Scatter-adds on the GPU use atomics, so sums change order from run to
 run: compare statistics within tolerance.  Products run in IEEE float32
 (TF32 off).
 
-Graphs of HMM networks (`mpv` mode, the per-arc feacount of the
-discriminative path) belong to the hmmnet half of training and raise
-`NotImplementedError`.
+Graphs of HMM networks (`models/hmmnet.py`) go through the same code:
+their explicit entry/final vectors, per-arc constants and arc slots,
+the multipath-Viterbi forward-backward (`-M mpv`) and the per-arc
+feature counts of the discriminative path (``arc_feacount``).
 """
 
 from __future__ import annotations
@@ -33,18 +34,12 @@ import torch.nn.functional as F_
 
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO, logsumexp
 
-HMMNET_ITEM = "ROADMAP queue 1 item 5: training, its hmmnet half"
-
 # elements of one float32 intermediate of the vectorized transition pass
 _CHUNK_ELEMS = 1 << 25
 
 # fill values for the graph arrays whose length differs between
 # utterances (`shift_compile`'s irregular-edge lists)
 _PAD_FILL = {"ir_logp": LOG_ZERO}
-
-
-def later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({HMMNET_ITEM})")
 
 
 def stack_graphs(graphs: list, device) -> dict:
@@ -244,6 +239,125 @@ def masked_viterbi(obs_pos, graph, n_frames):
     return _backtrace(end_pos, valid, prev_of), score
 
 
+def _realize(val, gid):
+    """Winner-per-group mask over val [B, P], groups ``gid`` [B, P]: the
+    maximum of each group, ties to the lowest position, and only where
+    the value is live (the realized set decides which arcs get any
+    posterior, so ties break as the reference's)."""
+    P = val.shape[1]
+    idx = torch.arange(P, device=val.device).expand_as(gid)
+    gmax = torch.full_like(val, LOG_ZERO).scatter_reduce(
+        1, gid, val, "amax", include_self=False)
+    att = torch.where(val >= torch.gather(gmax, 1, gid), idx,
+                      torch.full_like(idx, P))
+    first = torch.full_like(idx, P).scatter_reduce(
+        1, gid, att, "amin", include_self=False)
+    return (idx == torch.gather(first, 1, gid)) & (val > LOG_ZERO / 2)
+
+
+def masked_multipath_viterbi_fb(obs_pos, graph, n_frames,
+                                num_trans_slots: int,
+                                with_live: bool = False):
+    """Multipath-Viterbi forward-backward over [B, T_pad, P] (`stats -M
+    mpv`, `aku/HmmNetBaumWelch.hh:85`), the reference's recursion:
+
+    * backward (`fill_backward_probabilities`, HmmNetBaumWelch.cc:
+      904-985): among arcs sharing (source node, first-level logical
+      arc) (``mpv_gid``) only the best keeps a backward score, and the
+      realized arcs are summed into the node score; each step stores
+      the realization of the frame it consumes (t+1);
+    * forward (`create_segmented_lattice`, :1190-1330): the plain sum,
+      over the arcs realized at each frame;
+    * gamma: posteriors over realized arcs, renormalized per frame
+      (`next_frame`'s prob_sum division, :783-788).
+
+    Returns (gamma [B, T, P], trans_post [B, NT] (only ``final_slot``),
+    total [B]) and, with ``with_live``, the structural liveness of the
+    realized arcs.
+    """
+    B, T, P = obs_pos.shape
+    dev = obs_pos.device
+    in_src, in_logp = graph["in_src"], graph["in_logp"]
+    out_tgt, out_logp = graph["out_tgt"], graph["out_logp"]
+    gid = graph["mpv_gid"]
+    valid = _valid(n_frames, T)
+    lz = torch.full((), LOG_ZERO, device=dev)
+
+    betas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    realized = torch.empty((B, T, P), dtype=torch.bool, device=dev)
+    betas[:, T - 1] = _final(graph, P, dev)
+    for t in range(T - 2, -1, -1):
+        beta = betas[:, t + 1]
+        val = obs_pos[:, t + 1] + beta
+        v = valid[:, t + 1, None]
+        real = _realize(val, gid) & v
+        realized[:, t + 1] = real
+        rv = torch.where(real, val, lz)
+        new = torch.clamp(logsumexp(out_logp + _take(rv, out_tgt), dim=2),
+                          min=LOG_ZERO)
+        torch.where(v, new, beta, out=betas[:, t])
+    real0 = _realize(obs_pos[:, 0] + betas[:, 0], gid)
+    realized[:, 0] = real0
+
+    entry = _entry(graph, B, P, dev)
+    # the reference's total: the mpv backward score at the initial node
+    total = logsumexp(torch.where(real0, entry + obs_pos[:, 0] + betas[:, 0],
+                                  lz), dim=1)
+    alphas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    torch.where(real0, torch.clamp(obs_pos[:, 0] + entry, min=LOG_ZERO), lz,
+                out=alphas[:, 0])
+    for t in range(1, T):
+        alpha = alphas[:, t - 1]
+        new = logsumexp(_take(alpha, in_src) + in_logp, dim=2) + obs_pos[:, t]
+        new = torch.clamp(torch.where(realized[:, t], new, lz), min=LOG_ZERO)
+        torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
+
+    gamma = torch.exp(torch.clamp(alphas + betas - total[:, None, None],
+                                  min=-80.0))
+    gamma = gamma * realized * valid[:, :, None]
+    denom = torch.clamp(gamma.sum(2, keepdim=True), min=1e-30)
+    gamma = torch.where(valid[:, :, None], gamma / denom,
+                        torch.zeros((), device=dev))
+    trans_post = _add_final_slot(
+        torch.zeros((B, num_trans_slots), dtype=torch.float32, device=dev),
+        graph)
+    if with_live:
+        live = ((alphas > LOG_ZERO / 2) & (betas > LOG_ZERO / 2)
+                & realized & valid[:, :, None])
+        return gamma, trans_post, total, live
+    return gamma, trans_post, total
+
+
+def _arc_copies(live, graph, n_frames):
+    """Per (frame, position) count of the discriminative path's
+    accumulations [B, T, P] int32 (`collect_lattice_stats`, stats.cc:
+    254-306): a live arc at frame t makes one segmented-arc copy per
+    distinct epsilon-reachable continuation node that holds its pending
+    arc and has a live out arc at t+1 (`create_segmented_lattice`,
+    HmmNetBaumWelch.cc:1221-1250, 1296-1338), and exactly one copy at
+    the utterance's last frame (:1389-1407).  Chunked over frames: the
+    first-duplicate test is [F, F] per (frame, position)."""
+    B, T, P = live.shape
+    out_tgt = graph["out_tgt"]                                 # [B, P, F]
+    Fw = out_tgt.shape[2]
+    out_node = _take(graph["src_node"], out_tgt)               # [B, P, F]
+    real_edge = graph["out_logp"] > LOG_ZERO / 2               # [B, P, F]
+    same = out_node[..., :, None] == out_node[..., None, :]    # [B, P, F, F]
+    first = torch.tril(torch.ones((Fw, Fw), dtype=torch.bool,
+                                  device=live.device), diagonal=-1)
+    same_first = (same & first)[:, None]               # f' < f, same node
+    live_next = F_.pad(live[:, 1:], (0, 0, 0, 1))
+    copies = torch.empty((B, T, P), dtype=torch.int32, device=live.device)
+    for s, e in _chunks(T, B * P * Fw * Fw):
+        el = _take_t(live_next[:, s:e], out_tgt) & real_edge[:, None]
+        dup = (el[..., None, :] & same_first).any(-1)    # [B, t, P, F]
+        copies[:, s:e] = (el & ~dup).sum(-1, dtype=torch.int32)
+    lastf = (torch.arange(T, device=live.device)[None, :]
+             == n_frames[:, None] - 1)[:, :, None]
+    return live.to(torch.int32) * torch.where(
+        lastf, torch.ones((), dtype=torch.int32, device=live.device), copies)
+
+
 def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
                 mode: str = "bw", full_stats: bool = False,
                 arc_feacount: bool = False):
@@ -251,15 +365,14 @@ def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
     with a leading batch axis.
 
     mode: 'bw' (Baum-Welch posteriors, `-M bw`), 'vit' (Viterbi one-hot,
-    `-M vit`; `aku/stats.cc:341`).  Keys: gamma [B, Gp], mean_acc
+    `-M vit`; `aku/stats.cc:341`), 'mpv' (multipath Viterbi, hmmnet
+    graphs only).  ``arc_feacount``: count the feature counts per
+    segmented arc, as the discriminative path does (`_arc_copies`),
+    instead of per live (frame, state).  Keys: gamma [B, Gp], mean_acc
     [B, Gp, D], sec_acc [B, Gp, D], feacount [B, Gp], mix_gamma
     [B, Sp, K], mix_ll [B, Sp], trans_acc [B, NT], log_likelihood [B],
     num_frames [B]; with full_stats also sec_acc_full [B, Gp, D, D].
     """
-    if mode == "mpv":
-        raise later("multipath Viterbi statistics (-M mpv)")
-    if arc_feacount:
-        raise later("per-arc feacounts of the discriminative path")
     pdf = graph["pdf"]                                    # [B, P]
     B, T, D = features.shape
     P = pdf.shape[1]
@@ -288,9 +401,17 @@ def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
     if mode == "bw":
         fb = (masked_forward_backward_shift if "sh_logp" in graph
               else masked_forward_backward)
-        gamma, trans_post, total = fb(
-            obs_pos, graph, n_frames, num_trans_slots,
-            with_transitions="arc_slot" not in graph)
+        res = fb(obs_pos, graph, n_frames, num_trans_slots,
+                 with_transitions="arc_slot" not in graph,
+                 with_live=arc_feacount)
+        gamma, trans_post, total = res[:3]
+        live = res[3] if arc_feacount else None
+    elif mode == "mpv":
+        res = masked_multipath_viterbi_fb(obs_pos, graph, n_frames,
+                                          num_trans_slots,
+                                          with_live=arc_feacount)
+        gamma, trans_post, total = res[:3]
+        live = res[3] if arc_feacount else None
     elif mode == "vit":
         vit = (masked_viterbi_shift if "sh_logp" in graph
                else masked_viterbi)
@@ -338,8 +459,12 @@ def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
     # ~1.8e-35 of structurally dead positions
     if live is None:
         live = gamma > 1e-32
-    pres = _scatter_add(Sp, pdf, live.float().transpose(1, 2))  # [B, Sp, T]
-    frames_s = (pres > 0).sum(2)                                 # [B, Sp]
+    if arc_feacount:
+        frames_s = _scatter_add(Sp, pdf, _arc_copies(
+            live, graph, n_frames).sum(1, dtype=torch.int64))   # [B, Sp]
+    else:
+        pres = _scatter_add(Sp, pdf, live.float().transpose(1, 2))
+        frames_s = (pres > 0).sum(2)                             # [B, Sp]
     real_comp = scorer.comp_logw > LOG_ZERO / 2                  # [Sp, K]
     per_comp = torch.where(real_comp, frames_s[:, :, None],
                            torch.zeros((), dtype=frames_s.dtype, device=dev))

@@ -92,6 +92,28 @@ Phases, each printing a summary line:
    files, `stats` against the CPU by the same rule; (c) `train`, 2 EM
    iterations with a split, `--durations` and 256 clusters: the
    log-likelihood must rise and its first model match (b)'s estimate,
+   each stage timed;
+12. discriminative training on HMM networks, which launches the kernels
+   only to score the WAVs it decodes into denominator networks: (a) at
+   phase 11's E-step width (G=10,000, S=2,500, K=8, D=39) with a
+   numerator network of one 256-label transcript and a denominator of it
+   and 7 more (an 8-path union), T=1,000 frames of N(0, 2): the
+   multipath-Viterbi FB, the MMI denominator pass (per-arc feature
+   counts), `mpe_stats` in mpfe-pdf and `mpe_stats_seg` in mpe at
+   max_seg_dur 64, each timed at B=1 and (but the segment mode, whose
+   [T, P, D] tensors hold the card's memory) at B=32: frames/s, kernel
+   launches a frame, device-busy share, peak memory; utterance 0 against
+   the CPU in spawned workers (the segment mode on 24-label paths over
+   120 frames); neither kernel may launch; (b) on the 1,000-word task's
+   WAVs (4 x 8 s, random transcripts, the model placed on their
+   features): `make_hmmnets -d` (K1 and K2 once per utterance each), on
+   the first utterance `stats -H`, `-M mpv`, `--mmi` and `--mpe` in the
+   mpe and mpfe-pdf error modes, `train_ebw --criterion mmi` for 2
+   iterations (its first model against `estimate --mmi` on `stats
+   --mmi`'s dumps), `opt_ebw_d`, and `recognize --stateseg` on 2 LNAs,
+   each on the CPU too on the same files (networks from the card's
+   log-probs and .stateseg files from the card's LNAs byte-identical;
+   statistics and `train_ebw` from the card's features by (a)'s rule),
    each stage timed.
 
 It then prints one JSON line of per-kernel results (each kernel's time
@@ -105,6 +127,7 @@ never imports jax.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1692,16 +1715,17 @@ def _train_cpu_job(kind: str, args):
     return None
 
 
-def _profile_call(fn, device, frames: int) -> str:
+def _profile_call(fn, device, frames: int, cpu: bool = True) -> str:
     """Kernel launches a frame and the device-busy share of one call of
     ``fn`` over ``frames`` frames, from torch.profiler's device events
-    (as `_profile_steps`)."""
+    (as `_profile_steps`); ``cpu=False`` records the device's activity
+    alone (no host op events to build: a call of 10^5 launches)."""
     if device.type != "cuda":
         return "profile not measured (CPU)"
     from torch.profiler import ProfilerActivity, profile
     sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         fn()
         sync(device)
     dev = [e for e in prof.events()
@@ -2006,6 +2030,643 @@ def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
     return launches
 
 
+# discriminative training at phase 11's E-step point: a numerator network
+# of one 256-label transcript and a denominator of it and 7 more random
+# 256-label transcripts (an 8-path union), B utterances of T frames of
+# N(0, 2) features; the segment-mode FB at max_dur, at B=1 only.  The
+# profiler records one call over the first T_prof frames; the segment
+# mode's CPU check runs paths of seg_labels labels over seg_T frames (at
+# the full point one CPU thread takes minutes)
+DISCRIM_POINT = dict(G=10000, S=2500, D=39, K=8, labels=256, paths=8,
+                     B=32, T=1000, max_dur=64, T_prof=250, seg_labels=24,
+                     seg_T=120)
+# the E-step passes of the discriminative path, as `chain_stats` and
+# `train/mpe.py` run them (phase [12])
+DISCRIM_MODES = ("mpv", "mmi", "mpfe-pdf", "seg-mpe")
+# statistics keys held card against CPU: the ML-style passes, then the
+# MPE numerator and denominator buffers
+_CHAIN_KEYS = ("gamma", "mean_acc", "sec_acc", "mix_gamma", "mix_ll",
+               "trans_acc", "feacount")
+_MPE_KEYS = tuple(f"{b}.{k}" for b in ("num", "den") for k in (
+    "gamma", "mean_acc", "sec_acc", "mix_gamma", "feacount"))
+
+
+def _seg_check_point(point) -> dict:
+    return dict(point, labels=point["seg_labels"], T=point["seg_T"], B=1)
+
+
+def _discrim_inputs(G, S, D, K, labels, paths, B, T, **_):
+    """(model, table, numerator FST, denominator FST, [B, T, D] features)
+    of the discriminative point, from a seed."""
+    from aaltoasr_tpu_torch.models.hmm import TransitionTable
+    from aaltoasr_tpu_torch.models.hmmnet import transcript_hmmnet, union_fst
+    from aaltoasr_tpu_torch.synth import random_model
+    model = random_model(G=G, S=S, D=D, K=K)
+    table = TransitionTable.from_model(model)
+    rng = np.random.default_rng(12)
+    nets = [transcript_hmmnet(model, table, [
+        f"p{i}" for i in rng.integers(0, S // 2, labels)])
+        for _ in range(paths)]
+    den = nets[0]
+    for net in nets[1:]:
+        den = union_fst(den, net)
+    feats = rng.normal(0, 2, (B, T, D)).astype(np.float32)
+    return model, table, nets[0], den, feats
+
+
+class _DiscrimPoint:
+    """The discriminative point's passes on ``device``: graphs compiled
+    and shift-compiled as `EStepDriver` compiles them, the segment
+    table of utterance 0 from its numerator alignment."""
+
+    def __init__(self, point, device, plain_den=False):
+        from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+        from aaltoasr_tpu_torch.synth import splice_cfg
+        from aaltoasr_tpu_torch.train import mpe
+        from aaltoasr_tpu_torch.train.driver import EStepDriver
+        self.point, self.device = point, device
+        (self.model, self.table, self.num_fst, self.den_fst,
+         self.feats) = _discrim_inputs(**point)
+        self.drv = EStepDriver(self.model, FeatureConfig.parse(splice_cfg()),
+                               device=device)
+        self.num_g = self.drv.graph_from_fst(self.num_fst)
+        self.den_g = self.drv.graph_from_fst(self.den_fst)
+        if plain_den:               # the plain FB form: no shift tables
+            self.den_g = {k: v for k, v in self.den_g.items()
+                          if not k.startswith(("sh_", "ir_"))}
+        self.membership = torch.as_tensor(mpe.phone_membership(self.model),
+                                          device=device)
+        self._stacked = {}
+        self._seg = {}
+
+    def graphs(self, B):
+        if B not in self._stacked:
+            from aaltoasr_tpu_torch.train.estep import stack_graphs
+            self._stacked = {B: (stack_graphs([self.num_g] * B, self.device),
+                                 stack_graphs([self.den_g] * B,
+                                              self.device))}
+        return self._stacked[B]
+
+    def seg_inputs(self, T):
+        """(table [1, T+1, D+1, C], classes [1, P]) of utterance 0's
+        first T frames."""
+        if T not in self._seg:
+            x = torch.as_tensor(self.feats[0, :T], device=self.device)
+            acc, cls, _ = self.drv.segment_table(
+                x, T, self.num_g, self.num_fst, self.den_g, self.den_fst,
+                "mpe", self.point["max_dur"])
+            self._seg[T] = (acc, cls)
+        return self._seg[T]
+
+    def call(self, mode, B, T=None):
+        """A no-argument callable running ``mode`` over the first B
+        utterances (and T frames) of the features."""
+        from aaltoasr_tpu_torch.train import estep, mpe
+        T = T or self.point["T"]
+        x = torch.as_tensor(self.feats[:B, :T], device=self.device)
+        n = torch.full((B,), T, dtype=torch.int64, device=self.device)
+        num, den = self.graphs(B)
+        sc, NT = self.drv.scorer, self.table.num_slots
+        if mode == "mpv":
+            return lambda: estep.chain_stats(sc, x, den, n, NT, mode="mpv")
+        if mode == "mmi":
+            return lambda: estep.chain_stats(sc, x, den, n, NT,
+                                             arc_feacount=True)
+        if mode == "mpfe-pdf":
+            return lambda: mpe.mpe_stats(sc, x, num, den, n, NT,
+                                         mode="mpfe-pdf",
+                                         membership=self.membership)
+        acc, cls = self.seg_inputs(T)
+        return lambda: mpe.mpe_stats_seg(sc, x, None, den, n, NT, acc, cls,
+                                         self.point["max_dur"])
+
+
+def _flat0(out) -> dict:
+    """Utterance 0 of a pass's statistics as flat numpy arrays."""
+    from aaltoasr_tpu_torch.train.driver import fetch
+    if "num" in out:
+        flat = {f"{b}.{k}": v[0] for b in ("num", "den")
+                for k, v in fetch(out[b]).items()}
+        flat.update(log_likelihood=float(out["log_likelihood"][0]),
+                    avg_accuracy=float(out["avg_accuracy"][0]))
+        return flat
+    return {k: v[0] for k, v in fetch(out).items()}
+
+
+def _discrim_cpu_job(kind: str, args):
+    """Phase [12]'s CPU side, in a worker process of one thread:
+    ``"point"`` runs utterance 0 of the discriminative point through
+    ``args`` = (point, mode) (the segment mode on `_seg_check_point`;
+    the MMI pass also in the plain FB form, a second float32 order); a
+    CLI module (args = (argv, the directory of the card's features)) runs
+    on the card's features (`_card_features`; `make_hmmnets` on the
+    card's log-probs, `_card_log_probs`), `cli.stats` with ``-H`` alone
+    also in the plain FB form (to an output base + ".plain")."""
+    torch.set_num_threads(1)
+    if kind == "point":
+        point, mode = args
+        if mode == "seg-mpe":
+            point = _seg_check_point(point)
+        out = {"cpu": _flat0(_DiscrimPoint(point, torch.device("cpu"))
+                             .call(mode, 1)())}
+        if mode == "mmi":
+            out["other"] = _flat0(_DiscrimPoint(
+                point, torch.device("cpu"), plain_den=True).call(mode, 1)())
+        return out
+    import importlib
+    from aaltoasr_tpu_torch.train import estep
+    argv, feature_dir = args
+    _card_features(feature_dir)
+    if kind.endswith(".make_hmmnets"):
+        _card_log_probs(feature_dir)
+    main = importlib.import_module(kind).main
+    _cli(main, argv + ["--device", "cpu"])
+    if kind.endswith(".stats") and argv[argv.index("-o") - 1] == "-H":
+        estep.shift_compile = lambda graph: graph
+        out = argv.index("-o") + 1
+        _cli(main, argv[:out] + [argv[out] + ".plain"] + argv[out + 1:]
+             + ["--device", "cpu"])
+    return None
+
+
+def _feature_key(samples) -> str:
+    import hashlib
+    return hashlib.sha1(np.asarray(samples).tobytes()).hexdigest()
+
+
+def _card_log_probs(feature_dir):
+    """`PhoneProbs.log_probs` returns the card's LNA log-probs of the
+    same samples (``lp_<sha1>.npy``, recorded by `_recording_log_probs`):
+    the CPU decodes the scores the card decoded (the fused kernels'
+    3xTF32 sums and the frontends' float32 noise move a word graph's
+    near ties and posterior pruning otherwise)."""
+    from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+    PhoneProbs.log_probs = lambda self, samples: np.load(os.path.join(
+        feature_dir, "lp_" + _feature_key(samples) + ".npy"))
+
+
+@contextlib.contextmanager
+def _recording_log_probs(feature_dir):
+    """`PhoneProbs.log_probs` as it is, each result also saved for
+    `_card_log_probs`."""
+    from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+    log_probs = PhoneProbs.log_probs
+
+    def recording(self, samples):
+        out = log_probs(self, samples)
+        np.save(os.path.join(feature_dir,
+                             "lp_" + _feature_key(samples) + ".npy"), out)
+        return out
+
+    PhoneProbs.log_probs = recording
+    try:
+        yield
+    finally:
+        PhoneProbs.log_probs = log_probs
+
+
+def _card_features(feature_dir):
+    """`FeatureGenerator.features` returns the card's features of the
+    same samples (saved by phase [12] (b) as ``<sha1>.npy``): the CPU's
+    E-step then sees the card's inputs, as in (a) (the frontends differ
+    by float32 noise, which log posteriors at T=1,000 amplify to
+    percents: `tools/torch_estep_precision.py`)."""
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+
+    def features(self, samples, num_samples=None):
+        return torch.as_tensor(np.load(os.path.join(
+            feature_dir, _feature_key(samples) + ".npy")), device=self.device)
+
+    FeatureGenerator.features = features
+
+
+def _mpe_unit(ref, k) -> float:
+    """gamma_mpe's own tolerance, 2e-4 (`tests/test_torch_discrim.py`),
+    carried to MPE-buffer key ``k``: times the buffer's largest moment
+    sum over its largest occupancy for the moment sums."""
+    buf, name = k.rsplit(".", 1)
+    if name not in ("mean_acc", "sec_acc"):
+        return 2e-4
+    occ = float(np.abs(np.asarray(ref[buf + ".gamma"])).max(initial=0.0))
+    return 2e-4 * float(np.abs(np.asarray(ref[k])).max(initial=0.0)) / max(
+        occ, 1e-30)
+
+
+def _discrim_check(label, got, ref, keys, other=None):
+    """The card's statistics against the CPU's on the same inputs: each
+    key within the larger of `_same_numbers_check`'s tolerances (2e-5
+    of its scale, 1e-4 for moment sums) and twice the spread ``other``
+    (a second float32 order of the same sums) plus 1e-6 of scale; the
+    MPE buffers within the larger of 1e-3 of scale and gamma_mpe's own
+    tolerance (`_mpe_unit`): gamma_mpe = gamma x (A + B - average), A
+    and B up to the segment or frame count and their difference O(1),
+    so float32's 6e-8 on A and B reaches 1e-4 of the buffers' scale and
+    more at T=1,000 (2.2e-4 on the segment check's network, 2e-4 in a
+    `stats --mpe` run on the card); feature counts identical, but in the
+    MPE buffers, which count responsibilities above 1e-10 of that noisy
+    gamma_mpe, within 2 (phase 11's rule for a threshold that float
+    noise moves) for the Gaussians whose occupancy passes 1e-3 (below
+    it gamma_mpe can be noise alone).  Returns the report."""
+    parts = []
+    for k in keys:
+        a = np.asarray(ref[k], np.float64)
+        b = np.asarray(got[k], np.float64)
+        mpe = k.startswith(("num.", "den.", "mpe_"))
+        if k.endswith("feacount"):
+            mask = (np.asarray(ref[k.replace("feacount", "gamma")]) > 1e-3
+                    if mpe else np.ones(a.shape, bool))
+            diff = np.abs(a[mask] - b[mask])
+            parts.append(f"{k} {int((diff > 0).sum())} of {int(mask.sum())}"
+                         f" differ (max {int(diff.max(initial=0))})")
+            if diff.max(initial=0) > (2 if mpe else 0):
+                fail(f"{label}: {k} differs from the CPU's by up to "
+                     f"{int(diff.max())} in {int((diff > 0).sum())} "
+                     "Gaussians")
+            continue
+        dev = float(np.abs(b - a).max(initial=0.0))
+        scale = max(float(np.abs(a).max(initial=0.0)), 1e-30)
+        tol = (1e-4 if "acc" in k else 2e-5) * scale
+        if mpe:
+            tol = max(1e-3 * scale, _mpe_unit(ref, k))
+        note = ""
+        if other is not None:
+            floor = float(np.abs(np.asarray(other[k], np.float64)
+                                 - a).max(initial=0.0))
+            tol = max(tol, 2 * floor + 1e-6 * scale)
+            note = f" (floor {floor / scale:.2e})"
+        parts.append(f"{k} {dev / scale:.2e}{note}")
+        if not dev <= tol:
+            fail(f"{label}: {k} deviates {dev:.4g} from the CPU's (scale "
+                 f"{scale:.4g}, tolerance {tol:.4g})")
+    return f"{label}: max |card - CPU| / scale: " + ", ".join(parts)
+
+
+def _net_size(fst, table) -> str:
+    from aaltoasr_tpu_torch.models.hmmnet import compile_hmmnet
+    g, _ = compile_hmmnet(fst, table)
+    return f"P={int(g['num_positions'])} F={g['in_src'].shape[1]}"
+
+
+def _stats_flat(stats) -> dict:
+    """An HmmStats' buffers as flat arrays (``<buffer>.<field>``), its
+    transition counts and its three scores."""
+    names = {0: "ml", 1: "mmi", 2: "mpe_num", 3: "mpe_den"}
+    flat = {"trans_acc": stats.trans_acc, "num_ll": stats.num_ll,
+            "den_ll": stats.den_ll, "mpe_score": stats.mpe_score}
+    for b, buf in stats.buffers.items():
+        for k in ("gamma", "mean_acc", "sec_acc", "mix_gamma", "feacount"):
+            flat[f"{names[b]}.{k}"] = getattr(buf, k)
+    return flat
+
+
+def _write_corpus_phn(task, root, n_wavs, n_phn, rng):
+    """Random transcripts of the task's phone labels (``n_phn`` each)."""
+    labels = [p.label for p in task.model.phones]
+    for u in range(n_wavs):
+        with open(os.path.join(root, f"u{u}.phn"), "w") as f:
+            f.write("".join(f"{labels[i]}\n" for i in
+                            rng.integers(0, len(labels), n_phn)))
+
+
+def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
+                  n_wavs=4, seconds=8.0, n_phn=60, tokens=64,
+                  max_seg_dur=16, n_lna=2, cpu_utts=1,
+                  task_args=TASK) -> dict:
+    """[12] Discriminative training on hmmnets on the card: (a) the
+    mpv FB, the MMI denominator pass, `mpe_stats` (mpfe-pdf) and
+    `mpe_stats_seg` (mpe) at the discriminative point, timed at B=1 and
+    (but the segment mode) at B, profiled, peak memory, utterance 0
+    against the CPU (neither kernel may launch); (b) `make_hmmnets -d`,
+    `stats -H` (and -M mpv, --mmi, --mpe in the mpe and mpfe-pdf error
+    modes), `train_ebw`, `opt_ebw_d` and `recognize --stateseg` on the
+    1,000-word task's WAVs, each against the CPU on the same files (the
+    statistics on the first ``cpu_utts`` utterances, `train_ebw` on all
+    and, for the comparison, on those; the CPU from the card's features
+    and log-probs); K1
+    and K2 launch once per utterance each in `make_hmmnets -d` and
+    nowhere else.  The task is built with monophones: `wordgraph_hmmnet`
+    expands each pronunciation by its phone labels, as the reference's
+    does, and a triphone model has no monophone labels.  Returns the
+    kernels' launch counts in `make_hmmnets -d`."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import (
+        estimate, make_hmmnets, opt_ebw_d, recognize, stats, train_ebw)
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.formats.fst import read_fst
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.models.hmm import TransitionTable
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.synth import (
+        feature_model, synth_task, write_task)
+    from aaltoasr_tpu_torch.train import accumulators as acc_mod
+    t_phase = time.perf_counter()
+    pool = ProcessPoolExecutor(8, mp_context=multiprocessing.get_context(
+        "spawn"))
+    cpu_point = {m: pool.submit(_discrim_cpu_job, "point", (point, m))
+                 for m in DISCRIM_MODES}
+
+    def counts():
+        return {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+
+    # (a) the device point
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    dp = _DiscrimPoint(point, device)
+    B, T = point["B"], point["T"]
+    print(f"[12] inputs built at {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    print(f"[12] discriminative point: G={point['G']} K={point['K']} "
+          f"D={point['D']}; numerator {point['labels']} labels, P="
+          f"{dp.num_g['pdf'].shape[0]} F={dp.num_g['in_src'].shape[1]}; "
+          f"denominator {point['paths']} paths, P={dp.den_g['pdf'].shape[0]}"
+          f" F={dp.den_g['in_src'].shape[1]} ({len(dp.den_g['ir_src'])} "
+          f"irregular edges); T={T}", flush=True)
+    card_out = {}
+    for mode in DISCRIM_MODES:
+        for b in ((1,) if mode == "seg-mpe" else (1, B)):
+            call = dp.call(mode, b)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            out = call()
+            sync(device)
+            peak = _peak_gib(device)
+            if b == 1:
+                card_out[mode] = _flat0(out)
+            del out
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                call()
+                sync(device)
+                walls.append(time.perf_counter() - t0)
+            wall = float(np.median(walls))
+            print(f"[12] {mode} B={b} T={T} (at "
+                  f"{time.perf_counter() - t_phase:.1f} s): "
+                  f"{b * T / wall:.0f} frames/s "
+                  f"({b * T / wall / 125:.1f}x real time; median of {reps} "
+                  f"call(s) after a first, ms: "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+                  + f"); peak {peak}; over {point['T_prof']} frames: "
+                  + _profile_call(dp.call(mode, b, point["T_prof"]), device,
+                                  point["T_prof"], cpu=False), flush=True)
+    if any(counts().values()):
+        fail(f"a TPU kernel launched at the discriminative point: "
+             f"{counts()}")
+    for mode in DISCRIM_MODES:
+        res = cpu_point[mode].result()
+        print(f"[12]   the CPU's {mode} result at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        got = card_out[mode]
+        if mode == "seg-mpe":           # the CPU's point, on the card
+            got = _flat0(_DiscrimPoint(_seg_check_point(point), device)
+                         .call(mode, 1)())
+        mpe_mode = "num.gamma" in got
+        ll = (got["log_likelihood"], res["cpu"]["log_likelihood"])
+        if abs(ll[0] - ll[1]) > 1e-5 * abs(ll[1]):
+            fail(f"{mode}: log-likelihood {ll[0]} on the card, {ll[1]} on "
+                 "the CPU")
+        extra = ""
+        if mpe_mode:
+            aa = (got["avg_accuracy"], res["cpu"]["avg_accuracy"])
+            if abs(aa[0] - aa[1]) > 1e-5 * max(abs(aa[1]), 1.0):
+                fail(f"{mode}: average accuracy {aa[0]} on the card, "
+                     f"{aa[1]} on the CPU")
+            extra = f", average accuracy {aa[0]:.4f} / {aa[1]:.4f}"
+        print(f"[12]   {mode} utterance 0"
+              + (f" ({point['seg_labels']}-label paths, {point['seg_T']} "
+                 "frames)" if mode == "seg-mpe" else "")
+              + f": log-likelihood {ll[0]:.3f} (card) {ll[1]:.3f} (CPU)"
+              + extra + "; " + _discrim_check(
+                  mode, got, res["cpu"],
+                  _MPE_KEYS if mpe_mode else _CHAIN_KEYS,
+                  other=res.get("other")),
+              flush=True)
+    del dp, card_out
+
+    # (b) the CLI pipeline on the 1,000-word task's WAVs
+    task = synth_task(**dict(task_args, triphone=False))
+    root = tempfile.mkdtemp(prefix="discrim", dir=os.environ.get("TMPDIR"))
+    p = lambda *names: os.path.join(root, *names)  # noqa: E731
+    paths = write_task(task, root, num_wavs=n_wavs, seconds=seconds)
+    cfg = FeatureConfig.load(paths["cfg"])
+    plain_fg = FeatureGenerator(cfg, device=device)
+    # the card's features of each WAV, for the CPU's E-steps
+    os.makedirs(p("feats"))
+    feats = []
+    for u in range(n_wavs):
+        samples = read_audio(p(f"u{u}.wav"), 16000)[0]
+        feats.append(plain_fg.features(samples).cpu().numpy())
+        np.save(p("feats", _feature_key(samples) + ".npy"), feats[-1])
+    feats = np.concatenate(feats)
+    # the task's model placed on these WAVs' features, no durations
+    model = dataclasses.replace(feature_model(task.model, feats, 0.25),
+                                durations=None)
+    model_io.write_model(p("am"), model)
+    rng = np.random.default_rng(7)
+    _write_corpus_phn(task, root, n_wavs, n_phn, rng)
+    for side, n in (("card", n_wavs), ("cpu", n_wavs),
+                    ("check", cpu_utts)):
+        net = "cpu" if side == "cpu" else "card"
+        with open(p(f"{side}.recipe"), "w") as f:
+            f.write("".join(
+                f"audio={p(f'u{u}.wav')} transcript={p(f'u{u}.phn')} "
+                f"hmmnet={p(f'{net}{u}.num')} "
+                f"den-hmmnet={p(f'{net}{u}.den')}\n"
+                for u in range(n)))
+    base = ["-b", p("am"), "-c", paths["cfg"]]
+    mh = ["-d", "--lm", paths["lm"], "--lexicon", paths["lexicon"],
+          "--tokens", str(tokens)]
+    on = ["--device", device.type]
+    walls = {}
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    with _recording_log_probs(p("feats")):
+        _, _, walls["make_hmmnets -d"] = _cli(
+            make_hmmnets.main, base + ["-r", p("card.recipe")] + mh + on)
+    mh_launches = counts()
+    cpu_mh = [pool.submit(_discrim_cpu_job,
+                          "aaltoasr_tpu_torch.cli.make_hmmnets",
+                          (base + ["-r", p("cpu.recipe"), "-B", str(n_wavs),
+                                   "-I", str(u + 1)] + mh, p("feats")))
+              for u in range(n_wavs)]
+    if mh_launches != {"mfcc_core": n_wavs, "gmm_state_ll": n_wavs}:
+        fail(f"make_hmmnets -d: kernel launches {mh_launches}, not one "
+             f"each per utterance ({n_wavs})")
+    table = TransitionTable.from_model(model)
+    sizes = [_net_size(read_fst(p(f"card{u}.den")), table)
+             for u in range(n_wavs)]
+    recipe = ["-r", p("card.recipe")]
+    check = ["-r", p("check.recipe")]
+    stats_runs = {"-H": ["-H"], "-H -M mpv": ["-H", "-M", "mpv"],
+                  "-H --mmi": ["-H", "--mmi"],
+                  "-H --mpe mpe": ["-H", "--mpe", "--errmode", "mpe",
+                                   "--max-seg-dur", str(max_seg_dur)],
+                  "-H --mpe mpfe-pdf": ["-H", "--mpe", "--errmode",
+                                        "mpfe-pdf"]}
+    cpu_stats = {name: pool.submit(
+        _discrim_cpu_job, "aaltoasr_tpu_torch.cli.stats",
+        (base + check + opts + ["-o", p("cpu_" + name.replace(" ", ""))],
+         p("feats"))) for name, opts in stats_runs.items()}
+    ebw = ["--criterion", "mmi", "--num-iters", "2"]
+    cpu_ebw = pool.submit(_discrim_cpu_job,
+                          "aaltoasr_tpu_torch.cli.train_ebw",
+                          (base + check + ebw + ["-w", p("ebw_cpu")],
+                           p("feats")))
+    for name, opts in stats_runs.items():
+        _, _, walls[f"stats {name}"] = _cli(
+            stats.main, base + check + opts
+            + ["-o", p("card_" + name.replace(" ", ""))] + on)
+    _, _, walls["train_ebw (2 iterations)"] = _cli(
+        train_ebw.main, base + recipe + ebw + ["-w", p("ebw_all")] + on)
+    _cli(train_ebw.main, base + check + ebw + ["-w", p("ebw_card")] + on)
+    # train_ebw's first iteration against estimate --mmi on `stats
+    # --mmi`'s dumps (the same model, networks and card)
+    with open(p("mmi.lst"), "w") as f:
+        f.write(p("card_-H--mmi") + "\n")
+    _cli(estimate.main, ["-b", p("am"), "-L", p("mmi.lst"), "-o",
+                         p("est_mmi"), "--mmi", "--C1", "2", "--C2", "2",
+                         "--ismooth", "100", "--minvar", "0.1"])
+    close_est = _models_close(model_io.read_model(p("est_mmi")),
+                              model_io.read_model(p("ebw_card", "ebw_1")))
+    # opt_ebw_d on those statistics: D values initialized, one gradient
+    # step; the CPU runs it on the same files
+    G = model.num_gaussians
+    with open(p("gauss.d"), "w") as f:
+        f.write("2 0.5 50\n" * G)
+    od_argv = ["-b", p("am"), "-L", p("mmi.lst"), "-T", p("mmi.lst"),
+               "--control", "mmi", "--train", "mmi", "-D", p("gauss.d")]
+    od_outs = {}
+    for side in ("card", "cpu"):
+        t0 = time.perf_counter()
+        runs = [_cli(opt_ebw_d.main, od_argv + [
+            "-F", p(f"qp_{side}"), "-o", p(f"d_{side}")] + extra)[0]
+            for extra in (["--d-init"], ["--initscale", "0.5"])]
+        walls.setdefault("opt_ebw_d", time.perf_counter() - t0)
+        od_outs[side] = (runs, open(p(f"d_{side}")).read(),
+                         open(p(f"qp_{side}"), "rb").read())
+    if od_outs["card"] != od_outs["cpu"]:
+        fail("opt_ebw_d: two runs on the same statistics differ")
+    # recognize --stateseg on n_lna of the WAVs (LNAs by the plain
+    # scorer: no kernel), then the CPU on copies of the same LNAs
+    rec_recipe = p("rec.recipe")
+    with open(rec_recipe, "w") as f:
+        f.write("".join(f"audio={p(f'u{u}.wav')} utterance=u{u}\n"
+                        for u in range(n_lna)))
+    rec = ["-b", p("am"), "-c", paths["cfg"], "-l", paths["lexicon"], "-n",
+           paths["lm"], "-r", rec_recipe, "--stateseg"]
+    out_rec, _, walls["recognize --stateseg"] = _cli(
+        recognize.main, rec + ["-w", p("rec_card")] + on)
+    if counts() != mh_launches:
+        fail(f"a TPU kernel launched in phase [12] (b) outside "
+             f"make_hmmnets -d: {counts()} after {mh_launches}")
+    shutil.copytree(p("rec_card", "lna"), p("rec_cpu", "lna"),
+                    ignore=shutil.ignore_patterns("*.stateseg"))
+    cpu_rec = pool.submit(_cpu_job, "aaltoasr_tpu_torch.cli.recognize",
+                          rec + ["-w", p("rec_cpu"), "--device", "cpu"])
+
+    # the CPU's results
+    for u, fut in enumerate(cpu_mh):
+        fut.result()
+    print(f"[12]   the CPU's networks at {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    for u in range(n_wavs):
+        for k in ("num", "den"):
+            if (open(p(f"card{u}.{k}"), "rb").read()
+                    != open(p(f"cpu{u}.{k}"), "rb").read()):
+                fail(f"make_hmmnets -d: u{u}'s {k} network differs "
+                     "between the card and the CPU")
+    print(f"[12] corpus: {n_wavs} WAVs x {seconds:g} s (the CPU's "
+          f"statistics on {cpu_utts}), {n_phn}-label "
+          f"transcripts, the 1,000-word task's model placed on the "
+          f"features; make_hmmnets -d (--tokens {tokens}) "
+          f"{walls['make_hmmnets -d']:.2f} s, K1/K2 launches {mh_launches}"
+          f"; networks byte-identical on the CPU (decoding the card's "
+          f"log-probs); denominators " + "; ".join(str(g) for g in sizes),
+          flush=True)
+    modes = {name: (acc_mod.PDF_ML_STATS
+                    | (acc_mod.PDF_MMI_STATS if "mmi" in name else 0)
+                    | ((acc_mod.PDF_MPE_NUM_STATS
+                        | acc_mod.PDF_MPE_DEN_STATS) if "mpe" in name else 0))
+             for name in stats_runs}
+    for name in stats_runs:
+        cpu_stats[name].result()
+        tag = name.replace(" ", "")
+        flat = {}
+        for side, dump in (("card", f"card_{tag}"), ("cpu", f"cpu_{tag}"),
+                           ("cpu.plain", f"cpu_{tag}.plain")):
+            if os.path.exists(p(dump + ".gks")):
+                st = acc_mod.HmmStats.zeros(model, table, modes[name])
+                st.load(p(dump), table)
+                flat[side] = _stats_flat(st)
+        for key in ("num_ll", "den_ll", "mpe_score"):
+            a, b = flat["card"][key], flat["cpu"][key]
+            if abs(a - b) > 1e-5 * abs(b) + 1e-4:
+                fail(f"stats {name}: {key} {a} on the card, {b} on the CPU")
+        line = _discrim_check(
+            f"stats {name}", flat["card"], flat["cpu"],
+            [k for k in flat["card"] if "." in k or k == "trans_acc"],
+            other=flat.get("cpu.plain"))
+        print(f"[12]   stats {name} {walls[f'stats {name}']:.2f} s on "
+              f"{cpu_utts} utterance(s): {line}", flush=True)
+    cpu_ebw.result()
+    summ = [[ln.split() for ln in open(p(d, "ebw.summary"))]
+            for d in ("ebw_card", "ebw_cpu", "ebw_all")]
+    # iteration 1 scores the same model on the same inputs (rel 1e-4);
+    # its models then differ by the statistics' float32 noise, which the
+    # EBW update amplifies (num - den + D), so they are held to phase
+    # 11's model rule and iteration 2's scores to rel 1e-3
+    close_ebw = _models_close(model_io.read_model(p("ebw_cpu", "ebw_1")),
+                              model_io.read_model(p("ebw_card", "ebw_1")))
+    for it, (r, o) in enumerate(zip(summ[1], summ[0])):
+        rel = 1e-4 if it == 0 else 1e-3
+        if o[7] != r[7] or any(abs(float(o[i]) - float(r[i]))
+                               > rel * abs(float(r[i])) for i in (3, 5)):
+            fail(f"train_ebw summary {o} on the card, {r} on the CPU")
+    print(f"[12] train_ebw --criterion mmi, 2 iterations: "
+          f"{walls['train_ebw (2 iterations)']:.2f} s, criterion "
+          + " -> ".join(f[3] for f in summ[2]) + f"; on {cpu_utts} "
+          "utterance(s) " + " -> ".join(f[3] for f in summ[0]) + " (card), "
+          + " -> ".join(f[3] for f in summ[1]) + " (CPU), num_ll "
+          + " -> ".join(f[5] for f in summ[0]) + " / "
+          + " -> ".join(f[5] for f in summ[1]) + f", ebw_1 card against "
+          f"CPU: {close_ebw} of scale; ebw_1 against "
+          f"estimate --mmi on stats --mmi's dumps: {close_est} of scale; "
+          f"opt_ebw_d {walls['opt_ebw_d']:.2f} s, the same D file and "
+          f"state on a second run", flush=True)
+    out_cpu = cpu_rec.result()[0]
+    lines = [[ln for ln in o.splitlines() if ln.endswith(")")]
+             for o in (out_rec, out_cpu)]
+    if lines[0] != lines[1] or len(lines[0]) != n_lna:
+        fail(f"recognize --stateseg: lines {lines[0]} on the card, "
+             f"{lines[1]} on the CPU")
+    segs = []
+    for u in range(n_lna):
+        a, b = (open(p(d, "lna", f"u{u}.wav.lna.stateseg")).read()
+                for d in ("rec_card", "rec_cpu"))
+        if a != b:
+            fail(f"recognize --stateseg: u{u}'s segments differ between "
+                 f"the card and the CPU")
+        segs.append(len(a.splitlines()))
+    print(f"[12] recognize --stateseg on {n_lna} LNAs: "
+          f"{walls['recognize --stateseg']:.2f} s; lines and .stateseg "
+          f"files identical on the CPU ({segs} segments); "
+          + "; ".join(lines[0]), flush=True)
+    pool.shutdown()
+    shutil.rmtree(root)
+    print(f"[12] stages (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items())
+        + f"; K1/K2 launches in (b) {counts()} (all in make_hmmnets -d); "
+        f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}",
+        flush=True)
+    return mh_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -2043,6 +2704,7 @@ def main() -> int:
         stream = phase_stream(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
     train_launches = phase_train(device, card=card)
+    discrim_launches = phase_discrim(device, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -2059,6 +2721,8 @@ def main() -> int:
         k["launches_phase7"] = {p: n[k["name"]] for p, n in adapt.items()}
         k["launches_phase10"] = s_launches[k["name"]]
         k["launches_phase11"] = train_launches[k["name"]]
+        # [12]: make_hmmnets -d, once per utterance (0 elsewhere)
+        k["launches_phase12"] = discrim_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
     print(json.dumps({"kernels": kernels}), flush=True)

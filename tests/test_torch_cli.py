@@ -338,26 +338,31 @@ def test_lattice_tools_match_reference(tmp_path, capsys, monkeypatch, tool):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine", "exact", "--stateseg"], "item 5"),
+    (["--engine", "exact", "--stateseg"], None),   # state segmentation
     (["--lookahead", "3"], None),        # context lookahead: now ported
-    (["--engine", "dense", "--stateseg"], "item 5"),
+    (["--engine", "dense", "--stateseg"], None),
     (["--engine", "dense", "--adapt", "vtln"], "adaptation"),
-    # the training CLIs (first element): the hmmnet half of item 5
-    (["stats", "-H"], "item 5"),
-    (["stats", "--mmi"], "item 5"),
-    (["stats", "--mpe"], "item 5"),
-    (["stats", "-M", "mpv"], "item 5"),
-    (["train", "-H"], "item 5"),
-    (["logl", "-H"], "item 5"),
+    # the training CLIs (first element): the hmmnet half of item 5, now
+    # ported
+    (["stats", "-H"], None),
+    (["stats", "--mmi", "-H"], None),
+    (["stats", "--mpe", "-H"], None),
+    (["stats", "-M", "mpv", "-H"], None),
+    (["train", "-H"], None),
+    (["logl", "-H"], None),
 ])
-def test_unported_options_raise(tmp_path, capsys, extra, match):
+def test_unported_options_raise(tmp_path, capsys, monkeypatch, extra, match):
     """Options still to port raise naming their ROADMAP item; a ported
-    one (match None) prints the reference's lines."""
+    one (match None) gives the reference's results: `recognize` its
+    lines (and with --stateseg its .stateseg files, byte for byte), the
+    training CLIs on the task's hmmnet= and den-hmmnet= networks and the
+    reference's features their statistics (within
+    `tests/test_torch_discrim.py`'s tolerances; --mpe's segment mode with
+    the reference's dead-arc weights, as there), models (rtol 2e-3) and
+    log-likelihoods (rel 1e-5)."""
     recipe = _task(tmp_path)
     if extra[0] in TRAINING_CLIS:
-        main, argv = _training_cli(tmp_path, recipe, extra[0])
-        with pytest.raises(NotImplementedError, match=match):
-            main(argv + extra[1:] + ["--device", "cpu"])
+        _training_parity(tmp_path, capsys, monkeypatch, recipe, extra)
         return
     if match is None:
         ref = _lines(capsys, j_recognize,
@@ -365,12 +370,84 @@ def test_unported_options_raise(tmp_path, capsys, extra, match):
         got = _lines(capsys, t_recognize,
                      _port_args(tmp_path, recipe, "port") + extra)
         assert len(ref) == 3 and got == ref
+        segs = sorted((tmp_path / "ref" / "lna").glob("*.stateseg"))
+        assert len(segs) == (3 if "--stateseg" in extra else 0)
+        for want in segs:
+            assert (tmp_path / "port" / "lna" / want.name).read_bytes() == \
+                want.read_bytes()
         return
     with pytest.raises(NotImplementedError, match=match):
         t_recognize(_port_args(tmp_path, recipe, "port") + extra)
 
 
-TRAINING_CLIS = ("stats", "align", "train", "logl")
+def _training_parity(tmp_path, capsys, monkeypatch, recipe, extra):
+    """A training CLI of the port against the reference's on the task
+    with a numerator and a denominator network per utterance."""
+    import importlib
+    from aaltoasr_tpu.formats import model_io as j_mio
+    from aaltoasr_tpu.formats.fst import write_fst
+    from aaltoasr_tpu.models.hmm import TransitionTable
+    from aaltoasr_tpu.models.hmmnet import transcript_hmmnet, union_fst
+    from aaltoasr_tpu.train import accumulators as j_acc
+    from tests.test_golden_estimate import assert_models_close
+    from tests.test_torch_discrim import stats_close_all
+    from tests.test_torch_train_cli import use_reference_features
+    from aaltoasr_tpu_torch.train import mpe as t_mpe
+    use_reference_features(monkeypatch)
+    monkeypatch.setattr(t_mpe, "_live_w", t_mpe._exp_w)
+    model = j_mio.read_model(str(tmp_path / "am"))
+    table = TransitionTable.from_model(model)
+    lines = recipe.read_text().splitlines()
+    seqs = [(tmp_path / f"u{u}.phn").read_text().split()
+            for u in range(len(lines))]
+    for u, seq in enumerate(seqs):
+        write_fst(transcript_hmmnet(model, table, seq),
+                  str(tmp_path / f"u{u}.num"))
+        write_fst(union_fst(transcript_hmmnet(model, table, seq),
+                            transcript_hmmnet(model, table, seqs[u - 1])),
+                  str(tmp_path / f"u{u}.den"))
+        lines[u] += (f" hmmnet={tmp_path}/u{u}.num "
+                     f"den-hmmnet={tmp_path}/u{u}.den")
+    recipe.write_text("\n".join(lines) + "\n")
+    cli = extra[0]
+    outs = []
+    for side, pkg, dev in (("ref", "aaltoasr_tpu", []),
+                           ("port", "aaltoasr_tpu_torch", ["--device",
+                                                           "cpu"])):
+        main = importlib.import_module(f"{pkg}.cli.{cli}").main
+        argv = ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
+                "-r", str(recipe)] + extra[1:]
+        argv += {"stats": ["-o", str(tmp_path / side)],
+                 "train": ["-w", str(tmp_path / side), "--num-iters", "1",
+                           "--mllt-start-iter", "0", "--split-frequency",
+                           "0", "-i", "0"]}.get(cli, [])
+        (tmp_path / side).mkdir(exist_ok=True)
+        assert main(argv + dev) in (0, None)
+        outs.append(capsys.readouterr().out)
+    if cli == "stats":
+        mode = j_acc.PDF_ML_STATS
+        if "--mmi" in extra:
+            mode |= j_acc.PDF_MMI_STATS
+        if "--mpe" in extra:
+            mode |= j_acc.PDF_MPE_NUM_STATS | j_acc.PDF_MPE_DEN_STATS
+        loaded = []
+        for side in ("port", "ref"):
+            st = j_acc.HmmStats.zeros(model, table, mode)
+            st.load(str(tmp_path / side), table)
+            loaded.append(st)
+        stats_close_all(*loaded)
+    elif cli == "train":
+        assert_models_close(
+            j_mio.read_model(str(tmp_path / "ref" / "model_1")),
+            j_mio.read_model(str(tmp_path / "port" / "model_1")), rtol=2e-3)
+    else:
+        (ll_r, n_r), (ll_p, n_p) = (o.split() for o in outs)
+        assert n_p == n_r
+        assert float(ll_p) == pytest.approx(float(ll_r), rel=1e-5)
+
+
+TRAINING_CLIS = ("stats", "align", "train", "logl", "make_hmmnets",
+                 "train_ebw")
 
 
 def _training_cli(tmp_path, recipe, cli):
@@ -380,7 +457,8 @@ def _training_cli(tmp_path, recipe, cli):
     argv = ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
             "-r", str(recipe)]
     extra = {"stats": ["-o", str(tmp_path / "port" / "st")],
-             "train": ["-w", str(tmp_path / "port" / "work")]}
+             "train": ["-w", str(tmp_path / "port" / "work")],
+             "train_ebw": ["-w", str(tmp_path / "port" / "work")]}
     return main, argv + extra.get(cli, [])
 
 

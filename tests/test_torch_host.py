@@ -255,18 +255,37 @@ with contextlib.redirect_stdout(io.StringIO()), \\
 assert os.path.exists(p("w/model_1.ph"))
 """
 
+DISCRIM_CALLS = """
+from aaltoasr_tpu_torch.cli import make_hmmnets, train_ebw
+open(p("h.rcp"), "w").write(
+    f"audio={p('t.wav')} transcript={p('t.phn')} hmmnet={p('t.num')} "
+    f"den-hmmnet={p('t.num')}\\n")
+h = ["-b", p("tm"), "-c", p("f.cfg"), "-r", p("h.rcp"), "--device", "cpu"]
+with contextlib.redirect_stdout(io.StringIO()), \\
+        contextlib.redirect_stderr(io.StringIO()):
+    make_hmmnets.main(h)
+    stats.main(h + ["-o", p("hs"), "-H", "--mmi", "--mpe", "--errmode",
+                    "mpfe-pdf"])
+    stats.main(h + ["-o", p("hv"), "-H", "-M", "mpv"])
+    train_ebw.main(h + ["-w", p("we"), "--num-iters", "1",
+                        "--criterion", "mpe"])
+assert os.path.exists(p("we/ebw_1.ph"))
+"""
+
 
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports without
     pulling jax or the JAX package into the process, nor does a call of
-    each lattice, streaming and training entry point."""
+    each lattice, streaming, training and discriminative-training entry
+    point."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import aaltoasr_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'aaltoasr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n" + LATTICE_CALLS + STREAM_CALLS + TRAIN_CALLS +
+        "import chip_smoke\n" + LATTICE_CALLS + STREAM_CALLS + TRAIN_CALLS
+        + DISCRIM_CALLS +
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aaltoasr_tpu' or m.startswith('aaltoasr_tpu.')]\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
@@ -285,6 +304,8 @@ def test_port_imports_no_jax():
               "train.ebw", "train.durations", "train.gcluster",
               "train.mllt", "cli.align", "cli.stats", "cli.estimate",
               "cli.train", "cli.combine_stats", "cli.logl", "cli.dur_est",
-              "cli.gcluster"):
+              "cli.gcluster", "formats.fst", "models.hmmnet", "train.mpe",
+              "train.opt_ebw_d", "decoder.stateseg", "cli.make_hmmnets",
+              "cli.train_ebw", "cli.opt_ebw_d"):
         assert "aaltoasr_tpu_torch." + m in res["modules"]
     assert len(res["modules"]) >= 35

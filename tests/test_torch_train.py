@@ -418,11 +418,18 @@ def test_chain_stats_on_hmmnet_graph(mode):
 
 @pytest.mark.parametrize("kw", [dict(mode="mpv"), dict(arc_feacount=True)])
 def test_chain_stats_hmmnet_options_raise(kw):
-    g, table, _ = _chain_graph(seed=0)
-    ts = convert.gmm_scorer(JScorer.from_model(three_state_model()))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_estep.chain_stats(ts, torch.zeros(1, 4, 4), _tg(g), _n(4),
-                            table.num_slots, **kw)
+    """The hmmnet options of `chain_stats` (once refused, now ported):
+    multipath Viterbi and the per-arc feature counts on a JAX-compiled
+    network, against the reference's (`_stats_close`)."""
+    g, table = _hmmnet_graph(seed=32)
+    jm, _ = _models(seed=32)
+    js = JScorer.from_model(jm)
+    X = np.random.default_rng(3).normal(0, 2, (10, jm.dim)).astype(np.float32)
+    want = j_estep.chain_stats(js, jnp.asarray(X), _jg(g), jnp.int32(10),
+                               table.num_slots, **kw)
+    got = t_estep.chain_stats(convert.gmm_scorer(js), torch.as_tensor(X)[None],
+                              _tg(g), _n(10), table.num_slots, **kw)
+    _stats_close({k: _np(v[0]) for k, v in got.items()}, want, str(kw))
 
 
 def test_em_increases_likelihood():
@@ -724,14 +731,26 @@ def _write(tmp_path, jm):
     return str(tmp_path / "am")
 
 
-def test_driver_hmmnet_options_raise(tmp_path):
+def test_driver_hmmnet_options_raise(tmp_path, monkeypatch):
+    """The hmmnet options of `EStepDriver` (once refused, now ported):
+    -H, --mmi and --mpe on a recipe with hmmnet= and den-hmmnet=
+    networks, and mode mpv, against the reference's driver on the same
+    features (every buffer within `tests/test_torch_discrim.py`'s
+    per-utterance tolerances)."""
+    from aaltoasr_tpu.formats.recipe import Recipe as JRecipe
     from aaltoasr_tpu_torch.formats.recipe import Recipe as TRecipe
-    recipe = write_corpus(tmp_path, np.random.default_rng(0), ("a",))
-    _, tm = _models()
-    d = t_driver.EStepDriver(tm, str(tmp_path / "feats.cfg"), device="cpu")
-    for kw in (dict(use_hmmnet=True), dict(mmi=True), dict(mpe=True)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            d.run_recipe(TRecipe.read(str(recipe)), **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_driver.EStepDriver(tm, str(tmp_path / "feats.cfg"), mode="mpv",
-                             device="cpu")
+    from tests.test_torch_discrim import hmmnet_corpus, stats_close_all
+    from tests.test_torch_train_cli import use_reference_features
+    use_reference_features(monkeypatch)
+    lines = hmmnet_corpus(tmp_path, n_utts=1).splitlines()
+    jm = j_mio.read_model(str(tmp_path / "am"))
+    cfg = str(tmp_path / "feats.cfg")
+    for mode, kw in (("bw", dict(use_hmmnet=True, mmi=True, mpe=True,
+                                 errmode="mpfe-pdf")),
+                     ("mpv", dict(use_hmmnet=True))):
+        want = j_driver.EStepDriver(jm, cfg, mode=mode).run_recipe(
+            JRecipe.read(lines), **kw)
+        got = t_driver.EStepDriver(convert.hmm_model(jm), cfg, mode=mode,
+                                   device="cpu").run_recipe(
+            TRecipe.read(lines), **kw)
+        stats_close_all(got, want)

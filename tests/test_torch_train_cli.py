@@ -1,7 +1,8 @@
-"""PyTorch port, training CLIs: `align`, `stats`, `combine_stats`,
-`estimate`, `train`, `dur_est`, `gcluster` and `logl`, each against the
-JAX package's CLI on the same files (CPU; the port's device CLIs get
-``--device cpu``).  `align` writes the reference's .phn files; the host
+"""PyTorch port, training CLIs: `align`, `stats` (also -H, --mmi, --mpe,
+-M mpv), `combine_stats`, `estimate`, `train` (also -H), `dur_est`,
+`gcluster`, `logl` (also -H), `make_hmmnets` (with and without -d),
+`train_ebw` and `opt_ebw_d`, each against the JAX package's CLI on the
+same files (CPU; the port's device CLIs get ``--device cpu``).  `align` writes the reference's .phn files; the host
 tools (`combine_stats`, `estimate`, `dur_est`, `gcluster`) write its
 bytes; `stats` and `train` agree within the JAX package's own
 tolerances (`tests/test_train.py`, `tests/test_golden_train_loop.py`:
@@ -23,6 +24,7 @@ from aaltoasr_tpu.cli import gcluster as j_gcluster
 from aaltoasr_tpu.cli import logl as j_logl
 from aaltoasr_tpu.cli import stats as j_stats
 from aaltoasr_tpu.cli import train as j_train
+from aaltoasr_tpu.cli import train_ebw as j_ebw
 from aaltoasr_tpu.formats import model_io as j_mio
 from aaltoasr_tpu.models.hmm import TransitionTable
 from aaltoasr_tpu.train import accumulators as j_acc
@@ -35,6 +37,7 @@ from aaltoasr_tpu_torch.cli import gcluster as t_gcluster
 from aaltoasr_tpu_torch.cli import logl as t_logl
 from aaltoasr_tpu_torch.cli import stats as t_stats
 from aaltoasr_tpu_torch.cli import train as t_train
+from aaltoasr_tpu_torch.cli import train_ebw as t_ebw
 from aaltoasr_tpu_torch.formats import model_io as t_mio
 from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
 
@@ -56,6 +59,11 @@ def same_features(monkeypatch):
     training CLIs see the same numbers on both sides (the frontends
     differ at float32 noise, ~1e-5 absolute on these features; their own
     parity is `tests/test_torch_frontend*.py`)."""
+    use_reference_features(monkeypatch)
+
+
+def use_reference_features(monkeypatch):
+    """The body of `same_features`, for tests that patch on their own."""
     from aaltoasr_tpu.formats.feaconf import FeatureConfig as JConfig
     from aaltoasr_tpu.frontend.generator import FeatureGenerator as JGen
     from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
@@ -314,3 +322,258 @@ def test_logl_matches_reference(tmp_path, capsys, same_features, mode):
         outs.append(capsys.readouterr().out.split())
     assert outs[1][1] == outs[0][1]                    # frames
     assert float(outs[1][0]) == pytest.approx(float(outs[0][0]), rel=1e-5)
+
+
+# -- the discriminative recipe: make_hmmnets, stats -H, train_ebw, opt_ebw_d --
+
+DCT4_CFG = """\
+module
+{
+  name audio
+  type audiofile
+  sample_rate 16000
+}
+module
+{
+  name fft
+  type fft
+  sources audio
+}
+module
+{
+  name mel
+  type mel
+  sources fft
+}
+module
+{
+  name dct
+  type dct
+  sources mel
+  dim 4
+}
+"""
+
+
+def _den_task(tmp_path, n_utts=2):
+    """`tests/test_make_hmmnets.py`'s task (3 words, bigram, 4-dim
+    features) with ``n_utts`` WAVs, and one recipe per package whose
+    hmmnet=/den-hmmnet= fields name its own files (``recipe.j``,
+    ``recipe.t``)."""
+    import wave
+    from tests.test_decoder import ARPA_TEXT, make_decode_task
+    model, _, _ = make_decode_task()
+    j_mio.write_model(str(tmp_path / "m"), model)
+    (tmp_path / "lm.arpa").write_text(ARPA_TEXT)
+    (tmp_path / "words.lex").write_text(
+        "yksi a b\nkaksi b a\nkolme c a\n_ _\n")
+    (tmp_path / "f.cfg").write_text(DCT4_CFG)
+    rng = np.random.default_rng(0)
+    for side in ("j", "t"):
+        lines = []
+        for u in range(n_utts):
+            lines.append(f"audio={tmp_path}/u{u}.wav "
+                         f"transcript={tmp_path}/u{u}.phn "
+                         f"hmmnet={tmp_path}/{side}{u}.num.fst "
+                         f"den-hmmnet={tmp_path}/{side}{u}.den.fst")
+        (tmp_path / f"recipe.{side}").write_text("\n".join(lines) + "\n")
+    for u in range(n_utts):
+        sig = (1500 * np.sin(2 * np.pi * (400 + 90 * u) * np.arange(4000)
+                             / 16000)
+               + 150 * rng.standard_normal(4000)).astype("<i2")
+        with wave.open(str(tmp_path / f"u{u}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(sig.tobytes())
+        (tmp_path / f"u{u}.phn").write_text(["a\nb\n", "b\na\n"][u % 2])
+    return ["-b", str(tmp_path / "m"), "-c", str(tmp_path / "f.cfg")]
+
+
+def _make_hmmnets(tmp_path, model, den=True):
+    from aaltoasr_tpu.cli import make_hmmnets as j_mh
+    from aaltoasr_tpu_torch.cli import make_hmmnets as t_mh
+    extra = (["-d", "--lm", str(tmp_path / "lm.arpa"), "--lexicon",
+              str(tmp_path / "words.lex"), "--lm-scale", "1.0",
+              "--beam", "1e9"] if den else [])
+    for main, side, dev in ((j_mh.main, "j", []), (t_mh.main, "t", CPU)):
+        assert main(model + ["-r", str(tmp_path / f"recipe.{side}")]
+                    + extra + dev) == 0
+
+
+@pytest.mark.parametrize("den", [False, True])
+def test_make_hmmnets_identical(tmp_path, same_features, den):
+    """Numerator networks from the transcripts and, with -d, denominator
+    networks from the exact engine's word graphs (posterior-pruned,
+    expanded, the numerator unioned in): the same MIT-FST bytes."""
+    model = _den_task(tmp_path)
+    _make_hmmnets(tmp_path, model, den)
+    for u in range(2):
+        for kind in ("num", "den") if den else ("num",):
+            want = (tmp_path / f"j{u}.{kind}.fst").read_bytes()
+            assert want and (tmp_path / f"t{u}.{kind}.fst").read_bytes() \
+                == want
+    if den:
+        assert (tmp_path / "t0.den.fst").read_text().count("\nT ") > \
+            (tmp_path / "t0.num.fst").read_text().count("\nT ")
+
+
+@pytest.mark.parametrize("opts", [
+    ["-H"], ["-H", "-M", "mpv"], ["-H", "--mmi"],
+    ["-H", "--mpe", "--errmode", "mpe"],
+    ["-H", "--mpe", "--errmode", "mpfe-pdf", "--mmi"]])
+def test_stats_hmmnet_matches_reference(tmp_path, monkeypatch, same_features,
+                                        opts):
+    """`stats` on `make_hmmnets -d`'s networks (the JAX CLI's files, read
+    by both): every buffer of the dumps within
+    `tests/test_torch_discrim.py`'s tolerances (the segment mode with
+    the reference's dead-arc weights, as there)."""
+    from tests.test_torch_discrim import stats_close_all
+    from aaltoasr_tpu_torch.train import mpe as t_mpe
+    monkeypatch.setattr(t_mpe, "_live_w", t_mpe._exp_w)
+    model = _den_task(tmp_path, n_utts=1)
+    _make_hmmnets(tmp_path, model)
+    argv = model + ["-r", str(tmp_path / "recipe.j")] + opts
+    assert j_stats.main(argv + ["-o", str(tmp_path / "j")]) == 0
+    assert t_stats.main(argv + ["-o", str(tmp_path / "t")] + CPU) == 0
+    mode = j_acc.PDF_ML_STATS
+    if "--mmi" in opts:
+        mode |= j_acc.PDF_MMI_STATS
+    if "--mpe" in opts:
+        mode |= j_acc.PDF_MPE_NUM_STATS | j_acc.PDF_MPE_DEN_STATS
+    m = j_mio.read_model(str(tmp_path / "m"))
+    table = TransitionTable.from_model(m)
+    loaded = []
+    for side in ("t", "j"):
+        s = j_acc.HmmStats.zeros(m, table, mode)
+        s.load(str(tmp_path / side), table)
+        loaded.append(s)
+    stats_close_all(*loaded)
+
+
+def test_train_and_logl_hmmnet_match_reference(tmp_path, capsys,
+                                               same_features):
+    """`train -H` (`tests/test_golden_train_loop.py`'s schedule cut to 2
+    EM iterations: a split at 2, durations) and `logl -H` on its hmmnet
+    corpus: models within `assert_models_close` rtol 2e-3, likelihoods
+    rel 1e-4."""
+    from tests.test_golden_hmmnet_stats import (
+        TRANSCRIPTS, make_hmmnet_corpus)
+    make_hmmnet_corpus(tmp_path)
+    lines = []
+    for u, words in enumerate(TRANSCRIPTS):
+        phn = tmp_path / f"u{u}.words.phn"
+        phn.write_text("".join(w + "\n" for w in words))
+        lines.append(f"audio={tmp_path}/u{u}.wav hmmnet={tmp_path}/u{u}.fst "
+                     f"transcript={phn} alignment={tmp_path}/u{u}.ali.phn")
+    (tmp_path / "recipe").write_text("\n".join(lines) + "\n")
+    base = ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "feats.cfg"),
+            "-r", str(tmp_path / "recipe")]
+    common = base + ["--id", "m", "--num-iters", "2", "--split-frequency",
+                     "2", "--split-stop-iter", "2", "--split-minocc", "1.0",
+                     "--split-maxmixgauss", "4", "--split-alpha", "1.0",
+                     "--minvar", "0.1", "--mllt-start-iter", "0", "-H",
+                     "-M", "bw", "--durations", "--dur-mincount", "2",
+                     "-i", "0"]
+    assert j_train.main(common + ["-w", str(tmp_path / "j")]) == 0
+    assert t_train.main(common + ["-w", str(tmp_path / "t")] + CPU) == 0
+    for it in (1, 2):
+        ref = j_mio.read_model(str(tmp_path / "j" / f"m_{it}"))
+        ours = j_mio.read_model(str(tmp_path / "t" / f"m_{it}"))
+        assert ref.num_gaussians == ours.num_gaussians
+        assert_models_close(ref, ours, rtol=2e-3)
+    lls = [[float(ln.split()[3]) for ln in
+            (tmp_path / d / "m.summary").read_text().splitlines()]
+           for d in ("j", "t")]
+    np.testing.assert_allclose(lls[1], lls[0], rtol=1e-4)
+    capsys.readouterr()
+    outs = []
+    for main, extra in ((j_logl.main, []), (t_logl.main, CPU)):
+        assert main(base + ["-H"] + extra) == 0
+        outs.append(capsys.readouterr().out.split())
+    assert outs[1][1] == outs[0][1]
+    assert float(outs[1][0]) == pytest.approx(float(outs[0][0]), rel=1e-5)
+
+
+@pytest.mark.parametrize("criterion", ["mmi", "mpe"])
+def test_train_ebw_matches_reference(tmp_path, monkeypatch, same_features,
+                                     criterion):
+    """`train_ebw --make-hmmnets`, 2 EBW iterations, then a rerun that
+    resumes (nothing rewritten): models within `assert_models_close`
+    rtol 2e-3, the summary's criteria and likelihoods rel 1e-4 (abs 1e-4),
+    frames identical; the generated networks byte-identical.  MPE's
+    segment mode runs with the reference's dead-arc weights
+    (`tests/test_torch_discrim.py::reference_weights`)."""
+    from aaltoasr_tpu_torch.train import mpe as t_mpe
+    monkeypatch.setattr(t_mpe, "_live_w", t_mpe._exp_w)
+    model = _den_task(tmp_path)
+    outs = []
+    for main, side, dev in ((j_ebw.main, "j", []), (t_ebw.main, "t", CPU)):
+        argv = model + ["-r", str(tmp_path / f"recipe.{side}"),
+                        "-w", str(tmp_path / f"w{side}"),
+                        "--criterion", criterion, "--num-iters", "2",
+                        "--ismooth", "5"] + dev
+        assert main(argv + ["--make-hmmnets", "--lm",
+                            str(tmp_path / "lm.arpa"), "--lexicon",
+                            str(tmp_path / "words.lex"), "--lm-scale",
+                            "1.0"]) == 0
+        summary = (tmp_path / f"w{side}" / "ebw.summary").read_text()
+        mtime = os.path.getmtime(tmp_path / f"w{side}" / "ebw_2.ph")
+        assert main(argv) == 0                          # resume
+        assert (tmp_path / f"w{side}" / "ebw.summary").read_text() == summary
+        assert os.path.getmtime(tmp_path / f"w{side}" / "ebw_2.ph") == mtime
+        outs.append([ln.split() for ln in summary.splitlines()])
+    for u in range(2):
+        assert (tmp_path / f"t{u}.den.fst").read_bytes() == (
+            tmp_path / f"j{u}.den.fst").read_bytes()
+    for it in (1, 2):
+        assert_models_close(
+            j_mio.read_model(str(tmp_path / "wj" / f"ebw_{it}")),
+            j_mio.read_model(str(tmp_path / "wt" / f"ebw_{it}")), rtol=2e-3)
+    assert len(outs[0]) == 2
+    for r, o in zip(*outs):
+        assert o[7] == r[7]                                   # frames
+        for i in (3, 5):
+            assert float(o[i]) == pytest.approx(float(r[i]), rel=1e-4,
+                                                abs=1e-4)
+
+
+def test_opt_ebw_d_identical(tmp_path, capsys):
+    """`opt_ebw_d` on the same statistics dumps: --d-init, a gradient
+    step (--initscale), QuickProp steps off the state file, clustered
+    D values; the same D files, state files, printed gradients and exit
+    codes."""
+    from aaltoasr_tpu.cli import opt_ebw_d as j_od
+    from aaltoasr_tpu.train import opt_ebw_d as j_odm
+    from aaltoasr_tpu_torch.cli import opt_ebw_d as t_od
+    from tests.test_opt_ebw_d import make_stats
+    model = three_state_model(seed=7)
+    table = TransitionTable.from_model(model)
+    j_mio.write_model(str(tmp_path / "m"), model)
+    for name, seed in (("control", 11), ("train", 12)):
+        make_stats(model, table, seed=seed).dump(str(tmp_path / name))
+        (tmp_path / f"{name}.lst").write_text(f"{tmp_path / name}\n")
+    G = model.num_gaussians
+    j_odm.write_d_file(tmp_path / "gauss.d", np.full(G, 2.0),
+                       np.full(G, 0.5), np.full(G, 50.0))
+    results = {}
+    for main, side in ((j_od.main, "j"), (t_od.main, "t")):
+        d = tmp_path / side
+        d.mkdir()
+        common = ["-b", str(tmp_path / "m"),
+                  "-L", str(tmp_path / "control.lst"),
+                  "-T", str(tmp_path / "train.lst"), "-F", str(d / "qp"),
+                  "-o", str(d / "out.d"), "--control", "mmi", "--train",
+                  "mmi", "-D", str(tmp_path / "gauss.d"), "-A", "1.0"]
+        clustered = common[:-2] + ["--cluster", "mix", "--cluster-d",
+                                   str(d / "cluster.d"), "-F",
+                                   str(d / "qpc")]
+        rcs, files = [], []
+        for argv in (common + ["--d-init"], common + ["--initscale", "0.5"],
+                     common, common, clustered + ["--initscale", "0.5"],
+                     clustered):
+            rcs.append(main(argv))
+            files.append([p.read_bytes() for p in sorted(d.iterdir())])
+        results[side] = (rcs, files, capsys.readouterr().out)
+    assert results["t"] == results["j"]
+    assert results["j"][0][0] == 0 and len(results["j"][1][-1]) == 4
