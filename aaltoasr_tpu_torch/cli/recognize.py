@@ -1,16 +1,17 @@
 """recognize: the batch recognition driver (pyrectool equivalent).
 
 Counterpart of `aaltoasr_tpu/cli/recognize.py`, with the same flags and
-rectool's reuse semantics (rectool.py:613-634, 1045-1056): LNA
-generation through the scoring pipeline (skip-if-exists), then decoding
+rectool's reuse semantics (rectool.py:613-634, 1045-1056): optional
+per-speaker adaptation (VTLN / CMLLR estimated into a .spkc in the
+workdir, reused when it exists; rectool.py:753-915), LNA generation
+through the scoring pipeline (skip-if-exists), then decoding
 through `Toolbox` with 1-best output, and on request SLF lattices
 (``<lna>.slf``), n-best lists, confusion-network confidences and state
 segmentations (``<lna>.stateseg``): the exact engine one utterance at a
 time, or the dense engine in batches; ``--engine auto`` (the default)
 picks exact below 100k tree nodes.  It runs on ``--device`` (default
-``cuda``; with no GPU it raises unless ``--device cpu`` is given).
-Adaptation is not ported yet and raises NotImplementedError naming the
-ROADMAP item that brings it.
+``cuda``; with no GPU it raises unless ``--device cpu`` is given), the
+adaptation stage's `vtln` and `mllr` runs included.
 """
 
 from __future__ import annotations
@@ -31,11 +32,6 @@ from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 
 # --engine auto split point of the reference (exact below, dense above)
 AUTO_ENGINE_NODE_THRESHOLD = 100_000
-
-_LATER = {
-    "adapt": "adaptation is not ported yet (ROADMAP queue 1 item 6: "
-             "adaptation)",
-}
 
 
 def select_engine(n_nodes: int) -> str:
@@ -62,6 +58,35 @@ def is_morph_lm(path: str) -> bool:
     return False
 
 
+def adapt(args) -> str:
+    """The adaptation stage: estimate ``<workdir>/<mode>.spkc`` unless it
+    exists (rectool.py:900-912) and return its path; ``vtln+mllr`` runs
+    MLLR on top of ``vtln.spkc`` (estimated first, also reused)."""
+    from aaltoasr_tpu_torch.cli.mllr import main as mllr_main
+    from aaltoasr_tpu_torch.cli.vtln import main as vtln_main
+    spkc_path = os.path.join(args.workdir, f"{args.adapt}.spkc")
+    if os.path.exists(spkc_path):
+        if args.info > 0:
+            print(f"Reusing {spkc_path}", file=sys.stderr)
+        return spkc_path
+    if args.info > 0:
+        print(f"Estimating {args.adapt} adaptation", file=sys.stderr)
+    common = ["-b", args.am, "-c", args.config, "-r", args.recipe,
+              "-i", str(args.info), "--device", args.device]
+    if args.adapt == "vtln":
+        vtln_main(common + ["-o", spkc_path])
+    elif args.adapt == "vtln+mllr":
+        vtln_spkc = os.path.join(args.workdir, "vtln.spkc")
+        if not os.path.exists(vtln_spkc):
+            vtln_main(common + ["-o", vtln_spkc])
+        mllr_main(common + ["-o", spkc_path, "-S", vtln_spkc, "-M", "mllr"])
+    elif args.adapt == "mllr":
+        mllr_main(common + ["-o", spkc_path, "-M", "mllr"])
+    else:  # cmllr: model-space constrained transforms
+        mllr_main(common + ["-o", spkc_path, "--model-transform"])
+    return spkc_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="recognize")
     p.add_argument("-b", "--am", required=True,
@@ -80,7 +105,11 @@ def main(argv=None) -> int:
     p.add_argument("--insertion-penalty", type=float, default=0.0)
     p.add_argument("--adapt",
                    choices=["", "vtln", "mllr", "cmllr", "vtln+mllr"],
-                   default="", help="per-speaker adaptation (not ported)")
+                   default="",
+                   help="per-speaker adaptation before decoding "
+                        "(rectool.py:900-912: mllr = feature-space "
+                        "lin_transform 'mllr' module, cmllr = model-"
+                        "space transforms, vtln+mllr = chained)")
     p.add_argument("--engine", choices=["auto", "exact", "dense"],
                    default="auto",
                    help="decoder engine: exact token passing, the dense "
@@ -136,9 +165,6 @@ def main(argv=None) -> int:
                         "unless cpu is given)")
     args = p.parse_args(argv)
 
-    if args.adapt:
-        raise NotImplementedError(_LATER["adapt"])
-
     device = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
     recipe = Recipe.read(args.recipe, args.batch, args.bindex)
@@ -182,6 +208,8 @@ def main(argv=None) -> int:
             print(f"engine auto: {t.tree.num_nodes} tree nodes -> {engine}",
                   file=sys.stderr)
 
+    spkc_path = adapt(args) if args.adapt else ""
+
     # -- LNA generation (skip-if-exists, rectool.py:613-634)
     lna_dir = os.path.join(args.workdir, "lna")
     os.makedirs(lna_dir, exist_ok=True)
@@ -195,8 +223,12 @@ def main(argv=None) -> int:
             continue
         if pp is None:
             pp = PhoneProbs(args.am, args.config, lna_bytes=2, device=device)
+            if spkc_path:
+                pp.read_speaker_config(spkc_path)
         if args.info > 0:
             print(f"LNA: {rinfo.audio_path}", file=sys.stderr)
+        pp.set_speaker(rinfo.speaker_id)
+        pp.set_utterance(rinfo.utterance_id)
         pp.generate_to_file(rinfo.audio_path, path)
 
     need_lattice = bool(args.lattices or args.nbest or args.confidence)

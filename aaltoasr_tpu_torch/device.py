@@ -3,6 +3,8 @@ asks for the CPU, and never the CPU in the GPU's place."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,15 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
             f"device '{dev}' asked for, but no CUDA device is present; "
             "pass device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """float32 products inside run in IEEE float32 (no TF32), whatever
+    the caller's matmul precision; it is restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

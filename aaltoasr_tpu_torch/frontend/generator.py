@@ -202,14 +202,17 @@ class FeatureGenerator:
         return torch.take_along_dim(frames, t[:, :, None], dim=1)
 
     def _run(self, samples: torch.Tensor, n_frames: torch.Tensor,
-             T_pad: int, start: int = 0) -> torch.Tensor:
+             T_pad: int, start: int = 0, params: dict | None = None
+             ) -> torch.Tensor:
         """[B, S] samples ([B, N, dim] frames for a 'pre' base), [B] frame
         counts -> [B, T_pad, dim] for output frames [start, start +
-        T_pad); start may be negative (border copies)."""
+        T_pad); start may be negative (border copies).  ``params``
+        replaces the generator's runtime parameters for this call."""
         if self.num_frames(samples.shape[1]) < 1:
             raise ValueError("audio shorter than frame")
         config, ops, need = self.config, self.ops, self.need
-        params = self._dev_params
+        if params is None:
+            params = self._dev_params
         arrays = {}
         bl, br = need[config.base.name]
         if self.base_type == "pre":
@@ -296,6 +299,25 @@ class FeatureGenerator:
                        dtype=torch.int64, device=self.device)
         return self._run(samples[None], n, int(end_frame - start_frame),
                          start=int(start_frame))[0]
+
+    def features_stacked(self, samples, module: str, params: dict,
+                         num_frames: int | None = None) -> torch.Tensor:
+        """One utterance under B parameter sets of one module: [S]
+        samples -> [B, T_pad, dim] features, T_pad = ``num_frames(S)``.
+
+        ``params`` holds the module's runtime parameters with a leading
+        axis of B (a VTLN grid: one warp matrix per candidate); the other
+        modules keep the generator's, and the generator is left as it
+        was.  ``num_frames`` (default: all) sets where the border copies
+        start."""
+        samples = self._samples(samples)
+        T_pad = self.num_frames(samples.shape[0])
+        B = next(iter(params.values())).shape[0]
+        n = torch.full((B,), T_pad if num_frames is None else num_frames,
+                       dtype=torch.int64, device=self.device)
+        return self._run(samples[None].expand(B, -1), n, T_pad,
+                         params={**self._dev_params,
+                                 module: self._upload(params)})
 
     def features_batch(self, samples, num_samples):
         """[B, S] padded samples + [B] lengths -> [B, T_pad, dim].

@@ -548,7 +548,8 @@ class VtlnOp(Op):
         return {"warp_matrix": W}
 
     def apply(self, srcs, params):
-        out = srcs[0] @ params["warp_matrix"].T
+        # a warp matrix per batch row ([B, F, F], a VTLN grid) or one
+        out = srcs[0] @ params["warp_matrix"].mT
         if self._clamp:
             out = torch.clamp(out, min=0.0)
         return out

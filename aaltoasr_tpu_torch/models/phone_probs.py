@@ -63,6 +63,8 @@ class PhoneProbs:
         self.lna_bytes = lna_bytes
         self.normalize = normalize
         self.speaker_config: SpeakerConfig | None = None
+        # the speaker whose model-space transforms the scorer holds
+        self._model_speaker: str | None = None
 
     # -- speaker adaptation ----------------------------------------------
     def read_clustering(self, path, eval_minc: float = 0.0,
@@ -79,13 +81,19 @@ class PhoneProbs:
 
     def read_speaker_config(self, path) -> None:
         self.speaker_config = SpeakerConfig.load(path)
+        self._model_speaker = None
 
     def set_speaker(self, speaker_id: str) -> None:
+        """Apply a speaker's blocks: feature parameters every call, and
+        model-space CMLLR (a full-covariance scorer rebuilt on the host)
+        only when the speaker changes."""
         if self.speaker_config is None or not speaker_id:
             return
         params = self.speaker_config.speaker_params(speaker_id)
         self.fg.apply_speaker_config(params)
-        self._apply_model_transforms(params)
+        if speaker_id != self._model_speaker:
+            self._apply_model_transforms(params)
+            self._model_speaker = speaker_id
 
     def _apply_model_transforms(self, params: dict) -> None:
         """Model-namespace CMLLR blocks: rebuild the scorer with the

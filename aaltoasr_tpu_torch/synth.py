@@ -175,6 +175,15 @@ def vtln_cfg(ceps: int = 12, norm=None, **vtln) -> str:
             + _normalization("out", norm))
 
 
+def adapt_cfg(ceps: int = 12, norm=None) -> str:
+    """`vtln_cfg` followed by `mllr`, an identity lin_transform that a
+    feature-space CMLLR block replaces per speaker: a configuration on
+    which `recognize --adapt` runs every mode."""
+    return (vtln_cfg(ceps, norm)
+            + _module("mllr", "lin_transform",
+                      "out" if norm is None else "norm", dim=3 * (ceps + 1)))
+
+
 def _spkc_block(kind: str, ident: str, modules: dict) -> str:
     out = [f"{kind} {ident}", "{"]
     for name, items in modules.items():
@@ -517,6 +526,20 @@ def planted_obs(plan, num_states: int, generator: torch.Generator,
     return z.scatter_add_(-1, plan_t[..., None],
                           torch.full(plan_t.shape + (1,), gain,
                                      device=device))
+
+
+def speaker_wave(rng, scale: float, n: int, rate: int = 16000,
+                 noise: float = 150.0) -> np.ndarray:
+    """[n] samples of one synthetic speaker: partials at 500, 1,400 and
+    2,600 Hz times ``scale`` (a spectrally scaled speaker, as a shorter
+    vocal tract gives), each swelling and fading at its own slow rate,
+    plus N(0, noise^2)."""
+    t = np.arange(n) / rate
+    sig = sum(a * (1.0 + 0.6 * np.sin(2 * np.pi * m * t + ph))
+              * np.sin(2 * np.pi * f * scale * t)
+              for a, f, m, ph in ((2500, 500, 0.7, 0.0), (1500, 1400, 1.3, 1.0),
+                                  (800, 2600, 2.1, 2.0)))
+    return np.clip(sig + noise * rng.standard_normal(n), -32000, 32000)
 
 
 def write_wav(path, samples: np.ndarray, rate: int = 16000) -> None:

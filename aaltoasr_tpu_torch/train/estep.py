@@ -124,6 +124,31 @@ def _chunks(T1: int, per_frame: int):
         yield s, min(T1, s + step)
 
 
+def _forward(obs_pos, graph, valid):
+    """The forward recursion: alphas [B, T, P], frozen on masked frames."""
+    B, T, P = obs_pos.shape
+    dev = obs_pos.device
+    in_src, in_logp = graph["in_src"], graph["in_logp"]
+    alphas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    torch.clamp(obs_pos[:, 0] + _entry(graph, B, P, dev), min=LOG_ZERO,
+                out=alphas[:, 0])
+    for t in range(1, T):
+        alpha = alphas[:, t - 1]
+        new = logsumexp(_take(alpha, in_src) + in_logp, dim=2) + obs_pos[:, t]
+        new = torch.clamp(new, min=LOG_ZERO)
+        torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
+    return alphas
+
+
+def masked_forward_log_likelihood(obs_pos, graph, n_frames):
+    """The total log-likelihood [B] that `masked_forward_backward`
+    returns, from the forward pass alone."""
+    T, P = obs_pos.shape[1:]
+    alphas = _forward(obs_pos, graph, _valid(n_frames, T))
+    return logsumexp(alphas[:, T - 1] + _final(graph, P, obs_pos.device),
+                     dim=1)
+
+
 def masked_forward_backward(obs_pos, graph, n_frames, num_trans_slots: int,
                             with_transitions: bool = True,
                             with_live: bool = False):
@@ -141,15 +166,7 @@ def masked_forward_backward(obs_pos, graph, n_frames, num_trans_slots: int,
     out_tgt, out_logp = graph["out_tgt"], graph["out_logp"]
     valid = _valid(n_frames, T)
 
-    alphas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
-    torch.clamp(obs_pos[:, 0] + _entry(graph, B, P, dev), min=LOG_ZERO,
-                out=alphas[:, 0])
-    for t in range(1, T):
-        alpha = alphas[:, t - 1]
-        new = logsumexp(_take(alpha, in_src) + in_logp, dim=2) + obs_pos[:, t]
-        new = torch.clamp(new, min=LOG_ZERO)
-        torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
-
+    alphas = _forward(obs_pos, graph, valid)
     beta_last = _final(graph, P, dev)
     total = logsumexp(alphas[:, T - 1] + beta_last, dim=1)
 
@@ -358,6 +375,27 @@ def _arc_copies(live, graph, n_frames):
         lastf, torch.ones((), dtype=torch.int32, device=live.device), copies)
 
 
+def chain_observations(scorer, gll, graph):
+    """Per-position observation scores from Gaussian log-likelihoods
+    gll [B, T, Gp]: (cidx [B, P, K], clogw [B, P, K], gll_pk
+    [B, T, P, K], state_obs [B, T, P], obs_pos [B, T, P]).
+
+    The states the graph visits are scored on their P*K component
+    columns (the reference's all-state path for P >= Sp gives the same
+    elements and reduction; the responsibilities need this gather
+    anyway); obs_pos adds an hmmnet graph's per-arc static score and
+    ln(transition prob)."""
+    pdf = graph["pdf"]
+    cidx = scorer.comp_idx[pdf]                           # [B, P, K]
+    clogw = scorer.comp_logw[pdf]                         # [B, P, K]
+    gll_pk = _take_t(gll, cidx)                           # [B, T, P, K]
+    state_obs = logsumexp(gll_pk + clogw[:, None], dim=-1)   # [B, T, P]
+    obs_pos = state_obs
+    if "obs_const" in graph:
+        obs_pos = obs_pos + graph["obs_const"][:, None, :]
+    return cidx, clogw, gll_pk, state_obs, obs_pos
+
+
 def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
                 mode: str = "bw", full_stats: bool = False,
                 arc_feacount: bool = False):
@@ -383,19 +421,8 @@ def chain_stats(scorer, features, graph, n_frames, num_trans_slots: int,
     features = features.float()
 
     gll = scorer.gaussian_log_likelihoods(features)       # [B, T, Gp]
-    cidx = scorer.comp_idx[pdf]                           # [B, P, K]
-    clogw = scorer.comp_logw[pdf]                         # [B, P, K]
-    # the states the chain visits, scored on their P*K component columns
-    # (the reference's all-state path for P >= Sp gives the same
-    # elements and reduction; the responsibilities need this gather
-    # anyway)
-    gll_pk = _take_t(gll, cidx)                           # [B, T, P, K]
-    state_obs = logsumexp(gll_pk + clogw[:, None], dim=-1)   # [B, T, P]
-    obs_pos = state_obs
-    if "obs_const" in graph:
-        # hmmnet graphs: per-arc static score + ln(transition prob)
-        obs_pos = obs_pos + graph["obs_const"][:, None, :]
-
+    cidx, clogw, gll_pk, state_obs, obs_pos = chain_observations(
+        scorer, gll, graph)
     valid = _valid(n_frames, T)
     live = None
     if mode == "bw":

@@ -114,7 +114,31 @@ Phases, each printing a summary line:
    each on the CPU too on the same files (networks from the card's
    log-probs and .stateseg files from the card's LNAs byte-identical;
    statistics and `train_ebw` from the card's features by (a)'s rule),
-   each stage timed.
+   each stage timed;
+13. speaker adaptation and FST decoding, which launch neither kernel
+   (both counters must stay at 0): (a) at phase 11's model width
+   (G=10,000, S=2,500, K=8, D=39; the model placed on the features) on
+   4 WAVs of 8 s from two speakers (`synth.speaker_wave`, the second
+   spectrally scaled) through a VTLN + MLLR configuration
+   (`synth.adapt_cfg`): `VtlnEstimator` over the 21-point grid with
+   100-label transcripts and with an even state segmentation (-O),
+   `CmllrEstimator` with 1 class and with 8 regression classes, per
+   speaker timed (frames/s, peak memory) and one utterance profiled;
+   the CPU in spawned workers on the same inputs (warps identical, or a
+   near tie said so; curves rel 1e-5; statistics within twice the
+   CPU's own spread between its two FB forms plus 1e-5 of scale;
+   transforms within 1e-3 of scale or twice that spread); (b) `recognize
+   --adapt` in each of vtln, mllr, vtln+mllr, cmllr on the 1,000-word
+   task with those WAVs (the model placed on their features, the dense
+   engine): the CPU's own .spkc against the card's (warps identical,
+   transforms by (a)'s rule), then the CPU's `recognize` of the first
+   utterance of each speaker on the card's .spkc and features: the same
+   lines, LNA codes within one step and >= 99% identical, or, where
+   float32 itself misses that (model CMLLR's full-covariance products),
+   no further from the exact (float64) codes than twice the CPU; (c) `FstSearch` and `FstConfidence` over an 8-path
+   hmmnet grammar and `MitFstSearch` with gamma durations over a
+   30-phone loop, on (b)'s first 2 LNAs: words, paths and scores (rel
+   1e-5) and confidences as the CPU's, ms a frame.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -2225,6 +2249,27 @@ def _recording_log_probs(feature_dir):
         PhoneProbs.log_probs = log_probs
 
 
+@contextlib.contextmanager
+def _recording_features(feature_dir):
+    """`FeatureGenerator.features` as it is, each result also saved for
+    `_card_features` (the last call on the same samples wins: in
+    `recognize --adapt`, LNA generation's features, after estimation's)."""
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    features = FeatureGenerator.features
+
+    def recording(self, samples, num_samples=None):
+        out = features(self, samples, num_samples)
+        np.save(os.path.join(feature_dir, _feature_key(samples) + ".npy"),
+                out.cpu().numpy())
+        return out
+
+    FeatureGenerator.features = recording
+    try:
+        yield
+    finally:
+        FeatureGenerator.features = features
+
+
 def _card_features(feature_dir):
     """`FeatureGenerator.features` returns the card's features of the
     same samples (saved by phase [12] (b) as ``<sha1>.npy``): the CPU's
@@ -2667,6 +2712,564 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
     return mh_launches
 
 
+# -- [13] speaker adaptation and FST decoding -------------------------------
+
+# phase 11's model width; a 100-label transcript per utterance
+ADAPT_POINT = dict(G=10000, S=2500, D=39, K=8, labels=100)
+ADAPT_MODES = ("vtln", "mllr", "vtln+mllr", "cmllr")
+
+
+def _adapt_cpu_job(kind: str, args):
+    """Phase [13]'s CPU side, in a worker process of two threads:
+    ``"vtln"`` runs `VtlnEstimator` per speaker (args = model base,
+    configuration, utterances as (wav, speaker, labels or frame states),
+    aligned) and returns {speaker: (warp, curve)}; ``"cmllr"`` runs
+    `CmllrEstimator` per speaker and class map (args = model base, the
+    card's features as .npy files, labels, speakers, [(C, classes)]) on
+    the plain and the shift-compiled forward-backward (the second
+    float32 order) and returns {(C, speaker, form): (beta, k, G, W)};
+    ``"adapt"`` (args = mode, recognize's argv, a workdir) runs
+    `recognize`'s adaptation stage there and, where it estimates MLLR,
+    again in ``<workdir>-shift`` with the shift-compiled forward-backward
+    (the second float32 order); ``"recognize"`` (args = mode,
+    recognize's argv, a workdir holding the card's .spkc, a recipe, the
+    card's features) runs `recognize` on the card's features
+    (`_card_features`) and returns its lines, wall s and, per WAV, the
+    exact LNA codes of the same features (`_exact_codes`)."""
+    torch.set_num_threads(2)
+    from aaltoasr_tpu_torch.formats.model_io import read_model
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.models.hmm import (
+        TransitionTable, build_chain, pad_chain)
+    from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+    cpu = torch.device("cpu")
+    if kind == "adapt":
+        import argparse
+        from aaltoasr_tpu_torch.cli import mllr, recognize
+        from aaltoasr_tpu_torch.train.estep import shift_compile
+        mode, argv, own = args
+        for work in (own, own + "-shift") if mode != "vtln" else (own,):
+            if work != own:
+                mllr.pad_chain = lambda chain, n: shift_compile(
+                    pad_chain(chain, n))
+            os.makedirs(work)
+            recognize.adapt(argparse.Namespace(
+                am=argv[argv.index("-b") + 1],
+                config=argv[argv.index("-c") + 1],
+                recipe=argv[argv.index("-r") + 1], workdir=work, info=0,
+                device="cpu", adapt=mode))
+        return None
+    if kind == "recognize":
+        from aaltoasr_tpu_torch.cli import recognize
+        from aaltoasr_tpu_torch.formats.recipe import Recipe
+        from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+        mode, argv, same, recipe, feature_dir = args
+        _card_features(feature_dir)
+        argv = list(argv)
+        argv[argv.index("-r") + 1] = recipe
+        out, _, wall = _cli(recognize.main, argv + [
+            "-w", same, "--adapt", mode, "--device", "cpu"])
+        pp = PhoneProbs(argv[argv.index("-b") + 1],
+                        argv[argv.index("-c") + 1], device=cpu)
+        pp.read_speaker_config(os.path.join(same, f"{mode}.spkc"))
+        exact = {}
+        for rinfo in Recipe.read(recipe):
+            pp.set_speaker(rinfo.speaker_id)
+            exact[os.path.basename(rinfo.audio_path)] = _exact_codes(
+                pp.scorer, pp.fg.features(read_audio(rinfo.audio_path)[0]))
+        return ([ln for ln in out.splitlines() if ln.endswith(")")], wall,
+                exact)
+    model = read_model(args[0])
+    table = TransitionTable.from_model(model)
+    scorer = GmmScorer.from_model(model, device=cpu)
+    if kind == "vtln":
+        from aaltoasr_tpu_torch.train.vtln import VtlnEstimator
+        _, cfg, utts, aligned = args
+        est = VtlnEstimator(model, table, scorer,
+                            FeatureGenerator(cfg, device=cpu), "vtln")
+        by_spk = {}
+        for wav, spk, lab in utts:
+            by_spk.setdefault(spk, []).append(
+                (read_audio(wav, 16000)[0], lab))
+        return {spk: est.estimate_speaker(u, aligned=aligned)[:2]
+                for spk, u in by_spk.items()}
+    from aaltoasr_tpu_torch.train.estep import shift_compile
+    from aaltoasr_tpu_torch.train.mllr import CmllrEstimator
+    _, feat_files, labels, speakers, class_maps = args
+    out = {}
+    for (C, classes), min_frames in zip(class_maps, (1000.0, 100.0)):
+        for spk in sorted(set(speakers)):
+            for form in ("plain", "shift"):
+                est = CmllrEstimator(scorer, table, classes, C, model.means,
+                                     model.covars)
+                for u, s in enumerate(speakers):
+                    if s != spk:
+                        continue
+                    chain = build_chain(model, table, labels[u])
+                    pad = pad_chain(chain, chain.num_positions)
+                    feats = np.load(feat_files[u])
+                    est.accumulate(feats, shift_compile(pad) if form ==
+                                   "shift" else pad, feats.shape[0])
+                acc = est._acc
+                out[(C, spk, form)] = (acc["beta"], acc["k"], acc["G"],
+                                       est.transforms(min_frames))
+    return out
+
+
+def _exact_codes(scorer, feats) -> np.ndarray:
+    """2-byte LNA codes of features [T, D] through a diagonal or
+    full-covariance scorer's tables in float64: the exact codes, against
+    which the float32 sides' own rounding is measured."""
+    from aaltoasr_tpu_torch.ops.gmm import lna_normalize, quantize_lna_u16
+    from aaltoasr_tpu_torch.ops.logsemiring import logsumexp
+    x = feats.double()
+    if scorer.full_cov:
+        xx = torch.cat([(x[:, :, None] * x[:, None, :]).flatten(-2), x], -1)
+    else:
+        xx = torch.cat([x * x, x], -1)
+    gll = xx @ scorer.score_matrix.double() + scorer.score_bias.double()
+    ll = logsumexp(gll[:, scorer.comp_idx] + scorer.comp_logw.double(),
+                   dim=-1)[:, :scorer.num_states]
+    return quantize_lna_u16(lna_normalize(ll)).numpy().astype(np.int64)
+
+
+def _codes_floor_check(label, card, cpu, exact) -> str:
+    """LNA codes of the card against the CPU's on the same features:
+    within one step and >= 99% identical; or, where the float32 sums
+    themselves miss that (model CMLLR's full-covariance products cancel
+    on large transforms: two float32 orders round apart), phases 11-12's
+    floor rule on the exact codes: the card's share of codes off them
+    within twice the CPU's (or 1%), its largest step within one of the
+    CPU's."""
+    d_cc, d_ce, d_pe = (np.concatenate([np.abs(a - b).ravel()
+                                        for a, b in zip(x, y)])
+                        for x, y in ((card, cpu), (card, exact),
+                                     (cpu, exact)))
+    same = float((d_cc == 0).mean())
+    off_card, off_cpu = float((d_ce != 0).mean()), float((d_pe != 0).mean())
+    line = (f"LNA codes card vs CPU {100 * same:.3f}% identical, largest "
+            f"step {d_cc.max()}; off the exact (float64) codes: card "
+            f"{100 * off_card:.3f}% (largest step {d_ce.max()}), CPU "
+            f"{100 * off_cpu:.3f}% ({d_pe.max()})")
+    if d_cc.max() <= 1 and same >= 0.99:
+        return line
+    if d_ce.max() > d_pe.max() + 1 or off_card > max(0.01, 2 * off_cpu):
+        fail(f"{label}: {line}")
+    return line + " (the float32 floor)"
+
+
+def _stats_floor_check(label, card, ref, other, keys, scaled=1e-5) -> str:
+    """`_floor_check`'s rule on tuples of arrays: each entry within
+    twice the CPU's own spread between its two FB forms plus ``scaled``
+    of its scale."""
+    return _floor_check(label, dict(zip(keys, card)), dict(zip(keys, ref)),
+                        dict(zip(keys, other)), keys, scaled)
+
+
+def _transforms_check(label, card, ref, other) -> float:
+    """Per-class transforms of the card within 1e-3 of their scale (the
+    largest entry, at least 1) of the CPU's, or within twice the CPU's
+    own spread between its two FB forms where that is larger; returns
+    the largest deviation over its scale."""
+    worst = 0.0
+    for c, (a, b, o) in enumerate(zip(card, ref, other)):
+        scale = max(1.0, float(np.abs(b).max()))
+        dev = float(np.abs(a - b).max())
+        floor = float(np.abs(o - b).max())
+        worst = max(worst, dev / scale)
+        if dev > max(1e-3 * scale, 2 * floor):
+            fail(f"{label}: class {c}'s transform deviates {dev:.4g} from "
+                 f"the CPU's (scale {scale:.4g}, CPU spread {floor:.4g})")
+    return worst
+
+
+def _mit_phone_loop(model, labels) -> str:
+    """A reference-convention search FST (`MitFst`): a loop over the
+    phones ``labels``, one node per HMM state (its pdf on the arcs into
+    it), the model's transition log-probs as arc weights, each phone's
+    last state an end node with arcs into every phone's first state
+    (out label: the phone)."""
+    first, last, arcs, ends = {}, {}, [], []
+    nxt = 1
+    for lab in labels:
+        states = model.phone(lab).states
+        nodes = list(range(nxt, nxt + len(states)))
+        nxt += len(states)
+        first[lab], last[lab] = (nodes[0], states[0]), nodes[-1]
+        ends.append(nodes[-1])
+        for i, (node, s) in enumerate(zip(nodes, states)):
+            stay, move = (p for _, p in sorted(model.transitions[s]))
+            arcs.append(f"T {node} {node} {s} , {np.log(stay):.6f}")
+            if i + 1 < len(nodes):
+                arcs.append(f"T {node} {nodes[i + 1]} {states[i + 1]} , "
+                            f"{np.log(move):.6f}")
+    for lab in labels:
+        node, s = first[lab]
+        arcs.append(f"T 0 {node} {s} {lab} 0.0")
+        for src in labels:
+            stay, move = (p for _, p in sorted(
+                model.transitions[model.phone(src).states[-1]]))
+            arcs.append(f"T {last[src]} {node} {s} {lab} "
+                        f"{np.log(move):.6f}")
+    return "\n".join(["#FSTBasic MaxPlus", "I 0"]
+                     + [f"F {n}" for n in ends] + arcs) + "\n"
+
+
+def _grammar_fst(model, table, rng, paths=8, phones=30):
+    """A grammar network in the hmmnet convention, built as `make_hmmnets`
+    builds its networks: the union of ``paths`` transcript networks of
+    ``phones`` random phones each, every phone's first forward arc
+    carrying the phone as its output label."""
+    from aaltoasr_tpu_torch.models.hmmnet import transcript_hmmnet, union_fst
+    labels = [ph.label for ph in model.phones]
+    fst = None
+    for _ in range(paths):
+        seq = [labels[i] for i in rng.integers(0, len(labels), phones)]
+        one = transcript_hmmnet(model, table, seq)
+        for arc in one.arcs:
+            if arc.source == arc.inst and arc.target != arc.source:
+                arc.out_label = arc.label
+        fst = one if fst is None else union_fst(fst, one)
+    return fst
+
+
+def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
+                    seconds=8.0, workers=6) -> dict:
+    """[13] Speaker adaptation and FST decoding on the card, neither K1
+    nor K2 launching: (a) VTLN (the 21-point grid, transcript and -O
+    modes) and CMLLR (1 class, and 8 regression classes) estimation at
+    ``point`` on 4 WAVs of two speakers, timed, profiled, peak memory,
+    the card against the CPU on the same inputs; (b) `recognize
+    --adapt` in every mode on the 1,000-word task with those WAVs, the
+    CPU's own .spkc against the card's and the CPU's recognize on the
+    card's .spkc against the card's lines and LNA codes; (c) `FstSearch`,
+    `FstConfidence` and `MitFstSearch` (gamma durations) on (b)'s LNAs,
+    card against CPU.  Returns the kernels' launch counts over the
+    phase."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import recognize
+    from aaltoasr_tpu_torch.decoder.fstsearch import (
+        FstConfidence, FstSearch, MitFstSearch)
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.formats.lna import read_lna
+    from aaltoasr_tpu_torch.formats.spkc import SpeakerConfig
+    from aaltoasr_tpu_torch.frontend.audio import read_audio
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.models.hmm import (
+        TransitionTable, build_chain, pad_chain)
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.synth import (
+        adapt_cfg, feature_model, norm_stats, random_model, speaker_wave,
+        write_task, write_wav)
+    from aaltoasr_tpu_torch.train.mllr import CmllrEstimator
+    from aaltoasr_tpu_torch.train.regtree import (
+        build_regression_tree, terminal_classes)
+    from aaltoasr_tpu_torch.train.vtln import VtlnEstimator, warp_grid
+    t_phase = time.perf_counter()
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+        "spawn"))
+    root = tempfile.mkdtemp(prefix="adapt", dir=os.environ.get("TMPDIR"))
+    p = lambda *names: os.path.join(root, *names)  # noqa: E731
+
+    # two speakers' WAVs, the second spectrally scaled; the VTLN + MLLR
+    # configuration normalized over them at warp 1
+    rng = np.random.default_rng(13)
+    speakers = [f"s{2 * u // n_wavs}" for u in range(n_wavs)]
+    for u, spk in enumerate(speakers):
+        write_wav(p(f"u{u}.wav"), speaker_wave(
+            rng, 1.0 if spk == "s0" else 1.12, int(16000 * seconds)))
+    samples = [read_audio(p(f"u{u}.wav"), 16000)[0] for u in range(n_wavs)]
+    plain = FeatureGenerator(FeatureConfig.parse(adapt_cfg(12)), device=device)
+    feats = [plain.features(s).cpu().numpy() for s in samples]
+    mean, scale = norm_stats(np.concatenate(feats))
+    with open(p("adapt.cfg"), "w") as f:
+        f.write(adapt_cfg(12, norm=(mean, scale)))
+    nfeats = (np.concatenate(feats) - mean) * scale
+
+    # (a) estimation at the point's width
+    G, S = point["G"], point["S"]
+    model = feature_model(random_model(G=G, S=S, D=point["D"], K=point["K"]),
+                          nfeats, 1.0, seed=14)
+    model_io.write_model(p("a_am"), model)
+    table = TransitionTable.from_model(model)
+    labels = [[f"p{i}" for i in rng.integers(0, S // 2, point["labels"])]
+              for _ in range(n_wavs)]
+    fg = FeatureGenerator(p("adapt.cfg"), device=device)
+    T = [fg.num_frames(len(s)) for s in samples]
+    chains = [build_chain(model, table, lab) for lab in labels]
+    states = [c.pdf[np.arange(t) * c.num_positions // t]
+              for c, t in zip(chains, T)]       # an even segmentation
+    utts = {False: labels, True: states}
+    cpu_vtln = {aligned: pool.submit(_adapt_cpu_job, "vtln", (
+        p("a_am"), p("adapt.cfg"),
+        [(p(f"u{u}.wav"), speakers[u], utts[aligned][u])
+         for u in range(n_wavs)], aligned)) for aligned in (False, True)}
+    scorer = GmmScorer.from_model(model, device=device)
+    est = VtlnEstimator(model, table, scorer, fg, "vtln")
+    warps = warp_grid()
+    card_vtln = {}
+    for aligned in (False, True):
+        mode = "-O" if aligned else "transcript"
+        for spk in sorted(set(speakers)):
+            us = [u for u in range(n_wavs) if speakers[u] == spk]
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            warp, curve, _ = est.estimate_speaker(
+                [(samples[u], utts[aligned][u]) for u in us], aligned=aligned)
+            wall = time.perf_counter() - t0
+            card_vtln[(aligned, spk)] = (warp, curve)
+            frames = sum(T[u] for u in us)
+            print(f"[13] (a) VTLN {mode} {spk}: warp {warp:.3f}, "
+                  f"{len(warps)} warps x {frames} frames in {wall:.2f} s "
+                  f"({frames / wall:.0f} frames/s, {len(warps) * frames / wall:.0f} "
+                  f"warp-frames/s); peak {_peak_gib(device)}", flush=True)
+        one = ((lambda: est.utterance_lls_aligned(samples[0], states[0], warps))
+               if aligned else
+               (lambda: est.utterance_lls(samples[0], labels[0], warps)))
+        print(f"[13] (a) VTLN {mode}, one utterance of {T[0]} frames at "
+              f"{len(warps)} warps: " + _profile_call(one, device, T[0]),
+              flush=True)
+    if fg._dev_params["vtln"]["warp_matrix"].dim() != 2:
+        fail("VTLN estimation left a stacked warp in the generator")
+    # CMLLR on the card's features at warp 1 (saved for the CPU)
+    cfeats = []
+    for u in range(n_wavs):
+        cfeats.append(fg.features(samples[u]))
+        np.save(p(f"a_feat{u}.npy"), cfeats[-1].cpu().numpy())
+    tree = build_regression_tree(model.means, num_terminals=8)
+    classes = terminal_classes(tree, G)
+    Gp = scorer.score_matrix.shape[1]
+    class_maps = []
+    for cls in (np.zeros(G, np.int32), classes):
+        cp = np.zeros(Gp, np.int32)
+        cp[:G] = cls
+        class_maps.append((int(cls.max()) + 1, cp))
+    cpu_cmllr = pool.submit(_adapt_cpu_job, "cmllr", (
+        p("a_am"), [p(f"a_feat{u}.npy") for u in range(n_wavs)], labels,
+        speakers, class_maps))
+    card_cmllr = {}
+    for (C, cp), min_frames in zip(class_maps, (1000.0, 100.0)):
+        for spk in sorted(set(speakers)):
+            us = [u for u in range(n_wavs) if speakers[u] == spk]
+            cest = CmllrEstimator(scorer, table, cp, C, model.means,
+                                  model.covars)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for u in us:
+                cest.accumulate(cfeats[u], pad_chain(
+                    chains[u], chains[u].num_positions), T[u])
+            acc_wall = time.perf_counter() - t0
+            Ws = cest.transforms(min_frames)
+            wall = time.perf_counter() - t0
+            acc = {k: v.copy() for k, v in cest._acc.items()}
+            card_cmllr[(C, spk)] = (acc["beta"], acc["k"], acc["G"], Ws)
+            frames = sum(T[u] for u in us)
+            gate = (np.abs(acc["beta"] - min_frames)
+                    / np.maximum(acc["beta"], 1))
+            print(f"[13] (a) CMLLR {C} class(es) {spk}: statistics "
+                  f"{acc_wall:.2f} s ({frames / acc_wall:.0f} frames/s), "
+                  f"solve {wall - acc_wall:.2f} s (host), "
+                  f"{int((acc['beta'] >= min_frames).sum())}/{C} classes "
+                  f"past the {min_frames:g}-frame gate (closest margin "
+                  f"{gate.min():.2e} of beta); peak {_peak_gib(device)}",
+                  flush=True)
+        print(f"[13] (a) CMLLR {C} class(es), one utterance of {T[0]} "
+              f"frames: " + _profile_call(lambda: cest.accumulate(
+                  cfeats[0], pad_chain(chains[0], chains[0].num_positions),
+                  T[0]), device, T[0]), flush=True)
+    est_launches = {"mfcc_core": mfcc_core.launches,
+                    "gmm_state_ll": gmm_state_ll.launches}
+    if any(est_launches.values()):
+        fail(f"a TPU kernel launched in adaptation estimation: "
+             f"{est_launches}")
+
+    # (b) recognize --adapt in every mode on the 1,000-word task
+    paths = write_task(task, p("task"), num_wavs=0)
+    # phase 12's peaked model (as a trained one: words come out); the
+    # CPU's recognize reads the card's features (`_card_features`), as
+    # phase 12's does: estimated transforms scale the two frontends'
+    # float32 differences into LNA steps
+    placed = feature_model(task.model, nfeats, 0.25, seed=15)
+    model_io.write_model(paths["am"], placed)
+    _write_corpus_phn(task, root, n_wavs, 60, rng)
+    # the CPU's `recognize` decodes the first utterance of each speaker
+    checked = [speakers.index(spk) for spk in sorted(set(speakers))]
+    for name, us in (("b", range(n_wavs)), ("b_cpu", checked)):
+        with open(p(f"{name}.recipe"), "w") as f:
+            f.write("".join(f"audio={p(f'u{u}.wav')} "
+                            f"transcript={p(f'u{u}.phn')} "
+                            f"speaker={speakers[u]}\n" for u in us))
+    argv = ["-b", paths["am"], "-c", p("adapt.cfg"), "-l", paths["lexicon"],
+            "-n", paths["lm"], "-r", p("b.recipe"), "--engine", "dense",
+            "--decode-batch", str(n_wavs)]
+    card_rec, cpu_rec = {}, {}
+    cpu_est = {mode: pool.submit(_adapt_cpu_job, "adapt", (
+        mode, argv, p(f"cpu_{mode}"))) for mode in ADAPT_MODES}
+    for mode in ADAPT_MODES:
+        os.makedirs(p(f"feat_{mode}"))
+        with _recording_features(p(f"feat_{mode}")):
+            out, _, wall = _cli(recognize.main, argv + [
+                "-w", p(f"card_{mode}"), "--adapt", mode, "--device",
+                device.type])
+        card_rec[mode] = ([ln for ln in out.splitlines()
+                           if ln.endswith(")")], wall)
+        os.makedirs(p(f"same_{mode}"))
+        for name in os.listdir(p(f"card_{mode}")):
+            if name.endswith(".spkc"):
+                shutil.copy(p(f"card_{mode}", name), p(f"same_{mode}"))
+        cpu_rec[mode] = pool.submit(_adapt_cpu_job, "recognize", (
+            mode, argv, p(f"same_{mode}"), p("b_cpu.recipe"),
+            p(f"feat_{mode}")))
+        print(f"[13] (b) recognize --adapt {mode} on the card: {wall:.2f} s "
+              f"for {n_wavs} x {seconds:g} s (estimation, LNAs, dense "
+              f"decode)", flush=True)
+
+    # (c) FST decoding on (b)'s first LNAs, the card against the CPU
+    cpu_dev = torch.device("cpu")
+    frng = np.random.default_rng(16)
+    ptable = TransitionTable.from_model(placed)
+    grammar = _grammar_fst(placed, ptable, frng)
+    mit_text = _mit_phone_loop(placed, [
+        placed.phones[i].label
+        for i in frng.choice(len(placed.phones), 30, replace=False)])
+    decoders = {
+        "FstSearch": lambda d: FstSearch(grammar, placed, ptable, device=d),
+        "FstConfidence": lambda d: FstConfidence(grammar, placed, ptable,
+                                                 device=d),
+        "MitFstSearch": lambda d: MitFstSearch(mit_text, placed,
+                                               duration_scale=3.0,
+                                               max_dur=32, device=d)}
+    for name, make in decoders.items():
+        card_dec, cpu_dec = make(device), make(cpu_dev)
+        for u in range(2):
+            lp = read_lna(p("card_vtln", "lna", f"u{u}.wav.lna"))[0]
+            sync(device)
+            t0 = time.perf_counter()
+            got = (card_dec.run_with_confidence(lp) if name == "FstConfidence"
+                   else card_dec.run(lp))
+            ms = (time.perf_counter() - t0) * 1e3 / lp.shape[0]
+            want = (cpu_dec.run_with_confidence(lp)
+                    if name == "FstConfidence" else cpu_dec.run(lp))
+            if got[0] != want[0] or abs(got[1] - want[1]) > 1e-5 * abs(want[1]):
+                fail(f"{name} u{u}: card {got[:2]}, CPU {want[:2]}")
+            if name == "FstConfidence":
+                if abs(got[2] - want[2]) > 1e-5 * abs(want[2]) + 1e-6:
+                    fail(f"{name} u{u}: confidence {got[2]} on the card, "
+                         f"{want[2]} on the CPU")
+                extra = f", confidence {got[2]:.6f}"
+            else:
+                if not np.array_equal(got[2], want[2]):
+                    fail(f"{name} u{u}: paths differ between card and CPU")
+                extra = ", path identical"
+            print(f"[13] (c) {name} u{u}: {len(got[0])} words, score "
+                  f"{got[1]:.4f} (CPU {want[1]:.4f}){extra}; {ms:.3f} ms a "
+                  f"frame on the card ({lp.shape[0]} frames, P="
+                  f"{int(card_dec.graph['in_src'].shape[1])})", flush=True)
+        if name == "MitFstSearch":
+            got = card_dec.run_with_confidence(lp)
+            want = cpu_dec.run_with_confidence(lp)
+            if got[0] != want[0] or abs(got[2] - want[2]) > 1e-5 * abs(
+                    want[2]) + 1e-6:
+                fail(f"MitFstSearch confidence: card {got}, CPU {want}")
+
+    # the CPU sides of (a) and (b)
+    keys = ("beta", "k", "G")
+    for aligned in (False, True):
+        for spk, (warp, curve) in cpu_vtln[aligned].result().items():
+            cw, cc = card_vtln[(aligned, spk)]
+            rel = float(np.abs(cc - curve).max() / np.abs(curve).max())
+            order = np.argsort(-curve)
+            gap = curve[order[0]] - curve[order[1]]
+            tie = gap <= 1e-5 * abs(curve[order[0]])
+            if rel > 1e-5 or (cw != warp and not tie):
+                fail(f"VTLN {spk} aligned={aligned}: warp {cw} card, {warp} "
+                     f"CPU; curves differ by {rel:.2e} of scale")
+            print(f"[13] (a) VTLN {'-O' if aligned else 'transcript'} {spk}: "
+                  f"warp {cw:.3f} card, {warp:.3f} CPU; curve max |card - "
+                  f"CPU| / scale {rel:.2e}; best two grid points "
+                  f"{gap:.4g} apart" + (" (a near tie: either accepted)"
+                                        if tie and cw != warp else ""),
+                  flush=True)
+    cpu = cpu_cmllr.result()
+    for C, _ in class_maps:
+        for spk in sorted(set(speakers)):
+            card_s, ref, other = (card_cmllr[(C, spk)], cpu[(C, spk, "plain")],
+                                  cpu[(C, spk, "shift")])
+            line = _stats_floor_check(f"CMLLR {C} class(es) {spk}",
+                                      card_s[:3], ref[:3], other[:3], keys)
+            worst = _transforms_check(f"CMLLR {C} class(es) {spk}",
+                                      card_s[3], ref[3], other[3])
+            print(f"[13] (a) {line}; transforms {worst:.2e} of scale",
+                  flush=True)
+    for mode in ADAPT_MODES:
+        cpu_est[mode].result()
+        lines, wall, exact = cpu_rec[mode].result()
+        names = [f"{mode}.spkc"] + (["vtln.spkc"] if mode == "vtln+mllr"
+                                    else [])
+        worst = 0.0
+        for name in names:
+            a, b = (SpeakerConfig.load(p(d, name))
+                    for d in (f"card_{mode}", f"cpu_{mode}"))
+            other = (b if mode == "vtln" else
+                     SpeakerConfig.load(p(f"cpu_{mode}-shift", name)))
+            for spk, blocks in b.speakers.items():
+                for key, cfg in blocks.items():
+                    got_cfg = a.speakers[spk][key]
+                    for item, _ in cfg.items():
+                        x = np.asarray(got_cfg.get_float_vec(item))
+                        y = np.asarray(cfg.get_float_vec(item))
+                        if item in ("warp_factor", "classes", "gauss_class"):
+                            if not np.array_equal(x, y):
+                                fail(f"recognize --adapt {mode}: {spk} "
+                                     f"{item} {x} card, {y} CPU")
+                            continue
+                        # (a)'s rule: 1e-3 of scale, or twice the CPU's
+                        # own spread between its two FB forms
+                        o = np.asarray(other.speakers[spk][key]
+                                       .get_float_vec(item))
+                        sc = max(1.0, float(np.abs(y).max()))
+                        dev = float(np.abs(x - y).max())
+                        worst = max(worst, dev / sc)
+                        if dev > max(1e-3 * sc,
+                                     2 * float(np.abs(o - y).max())):
+                            fail(f"recognize --adapt {mode}: {spk} {item} "
+                                 f"{dev / sc:.2e} of scale from the CPU's "
+                                 f"(its own spread {np.abs(o - y).max() / sc:.2e})")
+        if lines != [card_rec[mode][0][u] for u in checked]:
+            fail(f"recognize --adapt {mode}: CPU lines {lines}, card "
+                 f"{card_rec[mode][0]}")
+        codes = _codes_floor_check(
+            f"recognize --adapt {mode}",
+            *([_read_codes(p(d, "lna", f"u{u}.wav.lna")) for u in checked]
+              for d in (f"card_{mode}", f"same_{mode}")),
+            [exact[f"u{u}.wav"] for u in checked])
+        print(f"[13] (b) recognize --adapt {mode}: .spkc on the CPU within "
+              f"{worst:.2e} of scale of the card's (warps equal; the rule "
+              f"of (a)); on the "
+              f"card's .spkc the CPU's lines of u{checked} identical "
+              f"({wall:.1f} s); {codes}; " + "; ".join(lines),
+              flush=True)
+    pool.shutdown()
+    shutil.rmtree(root)
+    launches = {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+    if any(launches.values()):
+        fail(f"a TPU kernel launched in phase [13]: {launches}")
+    print(f"[13] K1/K2 launches {launches}; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
@@ -2705,6 +3308,7 @@ def main() -> int:
     phase_adapt_full_width(device)
     train_launches = phase_train(device, card=card)
     discrim_launches = phase_discrim(device, card=card)
+    adapt_launches = phase_adapt_fst(device, task, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -2723,6 +3327,8 @@ def main() -> int:
         k["launches_phase11"] = train_launches[k["name"]]
         # [12]: make_hmmnets -d, once per utterance (0 elsewhere)
         k["launches_phase12"] = discrim_launches[k["name"]]
+        # [13]: adaptation estimation, recognize --adapt, FST decoding
+        k["launches_phase13"] = adapt_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,7 @@ parity tests are `tests/test_torch_train_cli.py`)."""
 
 import inspect
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -341,7 +342,11 @@ def test_lattice_tools_match_reference(tmp_path, capsys, monkeypatch, tool):
     (["--engine", "exact", "--stateseg"], None),   # state segmentation
     (["--lookahead", "3"], None),        # context lookahead: now ported
     (["--engine", "dense", "--stateseg"], None),
-    (["--engine", "dense", "--adapt", "vtln"], "adaptation"),
+    # adaptation (ROADMAP item 6): now ported, each mode
+    (["--engine", "dense", "--adapt", "vtln"], None),
+    (["--engine", "dense", "--adapt", "mllr"], None),
+    (["--engine", "dense", "--adapt", "vtln+mllr"], None),
+    (["--engine", "dense", "--adapt", "cmllr"], None),
     # the training CLIs (first element): the hmmnet half of item 5, now
     # ported
     (["stats", "-H"], None),
@@ -359,7 +364,11 @@ def test_unported_options_raise(tmp_path, capsys, monkeypatch, extra, match):
     reference's features their statistics (within
     `tests/test_torch_discrim.py`'s tolerances; --mpe's segment mode with
     the reference's dead-arc weights, as there), models (rtol 2e-3) and
-    log-likelihoods (rel 1e-5)."""
+    log-likelihoods (rel 1e-5); with --adapt, on a two-speaker task,
+    its lines, its .spkc files and its LNAs (`_adapt_parity`)."""
+    if "--adapt" in extra:
+        _adapt_parity(tmp_path, capsys, monkeypatch, extra)
+        return
     recipe = _task(tmp_path)
     if extra[0] in TRAINING_CLIS:
         _training_parity(tmp_path, capsys, monkeypatch, recipe, extra)
@@ -378,6 +387,131 @@ def test_unported_options_raise(tmp_path, capsys, monkeypatch, extra, match):
         return
     with pytest.raises(NotImplementedError, match=match):
         t_recognize(_port_args(tmp_path, recipe, "port") + extra)
+
+
+def _adapt_task(tmp_path, samples=66000, **corpus):
+    """`tests/test_torch_adapt_cli.adapt_corpus` (by default with 1,000+
+    frames per speaker, so that MLLR passes its 1,000-frame gate), the
+    lexicon and LM of `tests/test_recognize_cli.py`'s task; returns
+    recognize's arguments but the workdir."""
+    from tests.test_torch_adapt_cli import adapt_corpus
+    recipe = adapt_corpus(tmp_path, samples=samples, **corpus)
+    (tmp_path / "lm").mkdir()
+    _task(tmp_path / "lm")
+    return ["-b", str(tmp_path / "am"), "-c", str(tmp_path / "adapt.cfg"),
+            "-l", str(tmp_path / "lm" / "lex.txt"),
+            "-n", str(tmp_path / "lm" / "lm.arpa"), "-r", str(recipe),
+            "--lm-scale", "2", "--duration-scale", "0"]
+
+
+def _lna_codes_close(ref_dir, port_dir):
+    """LNA codes of the same names within one step, >= 99% identical."""
+    names = sorted(p.name for p in ref_dir.glob("*.lna"))
+    assert names == sorted(p.name for p in port_dir.glob("*.lna"))
+    diff = np.concatenate([np.abs(_codes(port_dir / n) - _codes(ref_dir / n))
+                           .ravel() for n in names])
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+    return names
+
+
+def use_reference_frontend(monkeypatch):
+    """The port's `FeatureGenerator.features` returns the reference
+    generator's features for the same configuration, samples and
+    runtime parameters (the speaker's warp or transform), so LNA
+    generation compares the speaker handling and the scoring alone."""
+    from aaltoasr_tpu.formats.feaconf import FeatureConfig as JConfig
+    from aaltoasr_tpu.frontend.generator import FeatureGenerator as JGen
+    gens = {}
+
+    def features(self, samples, num_samples=None):
+        text = self.config.dump()
+        gen = gens.setdefault(text, JGen(JConfig.parse(text)))
+        gen.params = {name: {k: v.cpu().numpy() for k, v in p.items()}
+                      for name, p in self._dev_params.items()}
+        return torch.as_tensor(np.array(gen.features(
+            np.asarray(samples), num_samples)), device=self.device)
+
+    monkeypatch.setattr(FeatureGenerator, "features", features)
+
+
+def _adapt_parity(tmp_path, capsys, monkeypatch, extra):
+    """`recognize --adapt MODE` of the port against the reference's on a
+    two-speaker task: the same lines; the same warps and transforms
+    within 1e-3 of their scale in every .spkc it writes; model-space
+    CMLLR rebuilt once per speaker, not per utterance.  Then the port
+    runs again on the reference's .spkc (reused from the workdir, as
+    rectool does) with the reference's frontend numbers: the same lines,
+    and LNA codes within one step, >= 99% identical.  The LNAs of the
+    first runs are not compared: each package's own transforms
+    differ by ~1e-4 of their scale (float32 forward-backward
+    statistics), and transforms with entries of 5-12, as this task
+    estimates, scale the frontends' ~1e-5 differences with them."""
+    from aaltoasr_tpu_torch.train import mllr as t_mllr
+    from tests.test_torch_adapt_cli import _spkc_close
+    argv = _adapt_task(tmp_path) + extra
+    builds = []
+    rebuild = t_mllr.apply_model_cmllr
+    monkeypatch.setattr(t_mllr, "apply_model_cmllr",
+                        lambda *a: builds.append(1) or rebuild(*a))
+    ref = _lines(capsys, j_recognize, argv + ["-w", str(tmp_path / "ref")])
+    got = _lines(capsys, t_recognize, argv + ["-w", str(tmp_path / "port"),
+                                              "--device", "cpu"])
+    assert len(ref) == 4 and got == ref
+    mode = extra[-1]
+    spkcs = [f"{mode}.spkc"] + (["vtln.spkc"] if mode == "vtln+mllr" else [])
+    for name in spkcs:
+        _spkc_close(tmp_path / "ref" / name, tmp_path / "port" / name,
+                    atol=1e-3)
+    assert len(builds) == (2 if mode == "cmllr" else 0)
+    (tmp_path / "same").mkdir()
+    for name in spkcs:
+        shutil.copy(tmp_path / "ref" / name, tmp_path / "same" / name)
+    use_reference_frontend(monkeypatch)
+    again = _lines(capsys, t_recognize, argv + ["-w", str(tmp_path / "same"),
+                                                "--device", "cpu"])
+    assert again == ref
+    _lna_codes_close(tmp_path / "ref" / "lna", tmp_path / "same" / "lna")
+
+
+def test_recognize_adapt_sets_each_speaker(tmp_path, capsys):
+    """With two speakers, `recognize --adapt vtln` sets each speaker's
+    warp before its utterances: each LNA differs from the unadapted
+    one exactly where the reference's does (a speaker at warp 1.0 keeps
+    its codes), and matches the reference's within one step."""
+    from aaltoasr_tpu.formats.spkc import SpeakerConfig
+    argv = _adapt_task(tmp_path) + ["--engine", "dense"]
+    for main, tag in ((j_recognize, "ref"), (t_recognize, "port")):
+        dev = ["--device", "cpu"] if tag == "port" else []
+        for mode in ("", "vtln"):
+            work = tmp_path / f"{tag}{mode}"
+            _lines(capsys, main, argv + ["-w", str(work), "--adapt", mode]
+                   + dev)
+    warps = {spk: blocks[("feature", "vtln")].get_float("warp_factor")
+             for spk, blocks in SpeakerConfig.load(
+                 str(tmp_path / "refvtln" / "vtln.spkc")).speakers.items()}
+    assert any(w != 1.0 for w in warps.values()), warps
+    names = _lna_codes_close(tmp_path / "refvtln" / "lna",
+                             tmp_path / "portvtln" / "lna")
+    for n in names:
+        moved = {tag: not np.array_equal(
+            _codes(tmp_path / f"{tag}vtln" / "lna" / n),
+            _codes(tmp_path / tag / "lna" / n)) for tag in ("ref", "port")}
+        assert moved["port"] == moved["ref"] == (
+            warps[n.split("_")[0] + "_" + n.split("_")[1]] != 1.0), n
+
+
+def test_recognize_adapt_utterance_ids_raise_as_reference(tmp_path,
+                                                          capsys):
+    """A recipe with utterance ids and a .spkc with no utterance blocks
+    (what `vtln` and `mllr` write): both packages' `set_utterance`
+    raise KeyError once adaptation is estimated (ROADMAP Queue 3)."""
+    argv = _adapt_task(tmp_path, samples=6000, utterance_ids=True) + [
+        "--engine", "dense", "--adapt", "vtln"]
+    for main, tag in ((j_recognize, "ref"), (t_recognize, "port")):
+        dev = ["--device", "cpu"] if tag == "port" else []
+        with pytest.raises(KeyError, match="unknown utterance"):
+            main(argv + ["-w", str(tmp_path / tag)] + dev)
+        assert (tmp_path / tag / "vtln.spkc").exists()
 
 
 def _training_parity(tmp_path, capsys, monkeypatch, recipe, extra):
