@@ -1,4 +1,4 @@
-"""aaltoasr_tpu_torch: aaltoasr_tpu on PyTorch and CUDA.
+"""aaltoasr_tpu_torch: the `aaltoasr_tpu/` package on PyTorch and CUDA.
 
 A port of the JAX package (`aaltoasr_tpu/`, which stays the reference)
 to PyTorch on an NVIDIA Hopper GPU.  It mirrors the reference's layout
@@ -11,10 +11,15 @@ frontend  the feature DAG (framing, FFT, mel, DCT, power, deltas, ...)
 ops       log-semiring helpers, GMM scoring, and the two hand-written
           CUDA kernels (`ops/frontend_cuda.py`, `ops/gmm_cuda.py`;
           sources under `csrc/`)
-models    PhoneProbs: audio -> features -> LNA log-probs
+models    PhoneProbs: audio -> features -> LNA log-probs; HMM chains
+          and networks
 decoder   lexical prefix tree, backoff-FSA LM walk, the exact
-          token-passing engine and the dense beam search, `Toolbox`
-cli       `phone_probs`, `recognize`, `decode`, `feacat`, `feadot`
+          token-passing engine and the dense beam search, `Toolbox`,
+          lattices, FST decoding
+train     the E-step, M-step, discriminative training, adaptation,
+          decision-tree tying and the optimizers
+cli       every CLI of the JAX package, by the same module name
+native    the C++ LNA codec and WAV reader (built with g++ at first use)
 
 The entry points (the CLIs, `PhoneProbs`, `Toolbox`, `BeamSearch`,
 `DenseBeamSearch`, ...) run on the GPU unless the caller asks for the

@@ -47,6 +47,9 @@ class PhoneProbs:
         if isinstance(model, str):
             model = read_model(model)
         self.model = model
+        # the model whose Gaussians the scorer holds (a speaker's adapted
+        # pool under model-space CMLLR)
+        self.scored_model = model
         self.fg = FeatureGenerator(config, fused_mfcc=fused,
                                    device=self.device)
         self.scorer = GmmScorer.from_model(model, device=self.device)
@@ -118,6 +121,7 @@ class PhoneProbs:
                              "model-space CMLLR (full-cov rebuild)")
         adapted = apply_model_cmllr(self.model, Ws, cls)
         self.scorer = GmmScorer.from_model(adapted, device=self.device)
+        self.scored_model = adapted
 
     def set_utterance(self, utterance_id: str) -> None:
         if self.speaker_config is None or not utterance_id:

@@ -13,8 +13,14 @@ shared basis; cluster-gated evaluation (`phone_probs -C`) scores exactly
 inside the top-ranked clusters and the center elsewhere.  Mixture
 scores are a gather plus a masked logsumexp over padded component
 tables, and the LNA normalization (`aku/PhoneProbsToolbox.cc:93-105`) is
-``max(ll - logsumexp(ll), log(1e-50))``.  Every product runs in IEEE
-float32 (TF32 stays off): phi(x) squares features of magnitude ~10^2.
+``max(ll - logsumexp(ll), log(1e-50))``.  The diagonal and gated
+products run in IEEE float32 (TF32 stays off).  The full-covariance and
+subspace products run in float64, their tables built in float64: phi(x)
+squares features of magnitude ~10^2, and on large model-space CMLLR
+transforms (precision entries to ~390) the terms of size |x|^2 |P|
+cancel down to the log-likelihood, which float32 rounds several LNA
+steps off the exact codes (`tests/test_torch_fullcov_codes.py`).  The
+JAX package forms the same product in float32.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from aaltoasr_tpu_torch.device import resolve_device
+from aaltoasr_tpu_torch.device import ieee_float32, resolve_device
 from aaltoasr_tpu_torch.formats.model_io import HmmModel
 from aaltoasr_tpu_torch.ops.logsemiring import (
     LOG_ZERO, SAFE_LOG_FLOOR, logsumexp)
@@ -44,8 +50,8 @@ class GmmScorer:
     """Scoring tables for one acoustic model on one device.
 
     score_matrix  [2D, Gp]  stacked [-0.5*p ; mu*p]
-                  ([D*D + D, Gp] over phi(x) when full_cov)
-    score_bias    [Gp]      C_g - 0.5*sum_d mu^2 p
+                  ([D*D + D, Gp] over phi(x), float64, when full_cov)
+    score_bias    [Gp]      C_g - 0.5*sum_d mu^2 p (float64 when full_cov)
     comp_idx      [Sp, K]   mixture component Gaussian indices (padded)
     comp_logw     [Sp, K]   log mixture weights (LOG_ZERO padding)
     """
@@ -90,8 +96,8 @@ class GmmScorer:
             # diagonal precision matrices so `variable` models score in
             # the same matmul)
             diag_prec = model.precisions()
-            A = np.zeros((D * D + D, Gp), dtype=np.float32)
-            bias = np.full(Gp, LOG_ZERO, dtype=np.float32)
+            A = np.zeros((D * D + D, Gp))
+            bias = np.full(Gp, LOG_ZERO)
             for g in range(G):
                 if g in model.pcgmm_params:
                     ssid, tm, lam = model.pcgmm_params[g]
@@ -166,17 +172,21 @@ class GmmScorer:
 
     def gaussian_log_likelihoods(self, features: torch.Tensor) -> torch.Tensor:
         """[..., T, D] features -> [..., T, Gp] per-Gaussian log-likelihoods."""
-        x = features.float()
-        if self.full_cov:
-            outer = (x[..., :, None] * x[..., None, :]).flatten(-2)
-            xx = torch.cat([outer, x], dim=-1)
-        else:
+        if not self.full_cov:
+            x = features.float()
             xx = torch.cat([x * x, x], dim=-1)
-        out = xx @ self.score_matrix + self.score_bias
-        for sb, sl in zip(self.sub_basis, self.sub_lambda):
-            # phi(x) through the shared subspace basis, then coefficients
-            out = out + (xx @ sb) @ sl
-        return out
+            return xx @ self.score_matrix + self.score_bias
+        # phi(x) and the products in the tables' type, float64 as
+        # `from_model` builds them (module docstring)
+        x = features.to(self.score_matrix.dtype)
+        outer = (x[..., :, None] * x[..., None, :]).flatten(-2)
+        xx = torch.cat([outer, x], dim=-1)
+        with ieee_float32():
+            out = xx @ self.score_matrix + self.score_bias
+            for sb, sl in zip(self.sub_basis, self.sub_lambda):
+                # phi(x) through the shared subspace basis, then coefficients
+                out = out + (xx @ sb) @ sl
+        return out.float()
 
     def with_clustering(self, model: HmmModel, assign: np.ndarray,
                         num_clusters: int, eval_minc: float = 0.0,

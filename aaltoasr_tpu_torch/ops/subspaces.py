@@ -481,7 +481,8 @@ def _fmt(x: float) -> str:
 
 
 # ---------------------------------------------------------------------------
-# factored device scoring tables
+# factored device scoring tables (float64, as the full-covariance product
+# that shares phi(x) with them: `ops/gmm.py`)
 # ---------------------------------------------------------------------------
 
 def pcgmm_tables(ps: PrecisionSubspace, params: dict, dim: int,
@@ -497,10 +498,10 @@ def pcgmm_tables(ps: PrecisionSubspace, params: dict, dim: int,
     # basis columns over phi(x) = [vec(xx'), x]: quad block holds the
     # FULL vec of S_b scaled by -0.5 so that
     # vec(xx') . (-0.5 vec(S_b)) == -0.5 x'S_b x; x block is zero
-    svec = np.zeros((dim * dim + dim, Bss), dtype=np.float32)
+    svec = np.zeros((dim * dim + dim, Bss))
     for b in range(Bss):
         svec[:dim * dim, b] = (-0.5 * ps.basis[b]).reshape(-1)
-    lam = np.zeros((Bss, num_padded), dtype=np.float32)
+    lam = np.zeros((Bss, num_padded))
     for g, (tm, l) in params.items():
         lam[:, g] = l
     return {"sub_basis": svec, "sub_lambda": lam}
@@ -514,12 +515,12 @@ def scgmm_tables(es: ExponentialSubspace, params: dict, dim: int,
     full -0.5 P matrix over vec(xx')."""
     Bss = es.subspace_dim
     d = dim
-    mat = np.zeros((d * d + d, Bss), dtype=np.float32)
+    mat = np.zeros((d * d + d, Bss))
     for b in range(Bss):
         psi, P = es.split_theta(es.basis_theta[b])
         mat[:d * d, b] = (-0.5 * P).reshape(-1)
         mat[d * d:, b] = psi
-    lam = np.zeros((Bss, num_padded), dtype=np.float32)
+    lam = np.zeros((Bss, num_padded))
     for g, l in params.items():
         lam[:, g] = l
     return {"sub_basis": mat, "sub_lambda": lam}

@@ -259,6 +259,50 @@ def feature_model(model: model_io.HmmModel, feats: np.ndarray,
     return dataclasses.replace(model, means=means, covars=covars)
 
 
+def exact_lna_codes(model: model_io.HmmModel, feats,
+                    chunk: int = 256) -> np.ndarray:
+    """[T, S] 2-byte LNA codes of features [T, D] under ``model`` in
+    float64, straight from its means and covariances (a full covariance
+    where ``model.full_covars`` has one, else the diagonal) in the
+    centred form ``-(x - mu)' P (x - mu) / 2 + C``: no scorer table and
+    no expanded square, so the reference against which float32 scoring
+    is measured.  Full covariances must be positive definite."""
+    from aaltoasr_tpu_torch.ops.gmm import lna_normalize, quantize_lna_u16
+    from aaltoasr_tpu_torch.ops.logsemiring import logsumexp
+    x = torch.as_tensor(np.asarray(feats, dtype=np.float64))
+    G, D = model.means.shape
+    prec = model.precisions()
+    means = torch.as_tensor(np.asarray(model.means, dtype=np.float64))
+    gll = torch.empty((x.shape[0], G), dtype=torch.float64)
+    for g0 in range(0, G, chunk):
+        gs = range(g0, min(G, g0 + chunk))
+        d = x[:, None, :] - means[g0:gs.stop]               # [T, n, D]
+        if any(g in model.full_covars for g in gs):
+            # P = L L': (x - mu)' P (x - mu) = |L' (x - mu)|^2
+            L = np.zeros((len(gs), D, D))
+            C = np.zeros(len(gs))
+            for i, g in enumerate(gs):
+                P = (np.linalg.inv(np.asarray(model.full_covars[g],
+                                              np.float64))
+                     if g in model.full_covars else np.diag(prec[g]))
+                L[i] = np.linalg.cholesky(P)
+                C[i] = 0.5 * np.linalg.slogdet(P)[1]
+            y = torch.einsum("tnd,nde->tne", d, torch.as_tensor(L))
+        else:
+            p = prec[g0:gs.stop]
+            y = d * torch.as_tensor(np.sqrt(p))
+            C = 0.5 * np.log(p).sum(axis=1)
+        gll[:, g0:gs.stop] = torch.as_tensor(C) - 0.5 * (y * y).sum(-1)
+    S = len(model.mixtures)
+    ll = torch.empty((x.shape[0], S), dtype=torch.float64)
+    for s, (idx, w) in enumerate(model.mixtures):
+        w = np.asarray(w, np.float64)
+        live = w > 0
+        ll[:, s] = logsumexp(gll[:, np.asarray(idx)[live]]
+                             + torch.as_tensor(np.log(w[live])), dim=-1)
+    return quantize_lna_u16(lna_normalize(ll)).numpy().astype(np.int64)
+
+
 def nearest_clusters(means: np.ndarray, num_clusters: int,
                      seed: int = 0) -> np.ndarray:
     """[G] cluster per Gaussian: the nearest (Euclidean) of

@@ -749,11 +749,18 @@ def phase_adapt_full_width(device, n_utts=32, seconds=10.0, G=10000,
                model, assign, clusters, 0.0, 0.1)}
     res = {"switch_s": switch_s}
     Gp = int(full.score_matrix.shape[1])
+    # the full-covariance product as it was formed before it moved to
+    # float64 (the same code on float32 tables), timed beside it
+    full32 = dataclasses.replace(full, score_matrix=full.score_matrix.float(),
+                                 score_bias=full.score_bias.float())
     flops = {"full-cov": 2.0 * T * (D * D + D) * Gp,
+             "full-cov float32 form": 2.0 * T * (D * D + D) * Gp,
              "gated": 2.0 * T * 2 * D * (Gp + clusters),
              "diagonal": 2.0 * T * 2 * D * Gp}
-    for name, sc in (("full-cov", full), ("gated", gated),
-                     ("diagonal", dense)):
+    kinds = {"full-cov": "float64", "full-cov float32 form": "IEEE float32",
+             "gated": "IEEE float32", "diagonal": "IEEE float32"}
+    for name, sc in (("full-cov", full), ("full-cov float32 form", full32),
+                     ("gated", gated), ("diagonal", dense)):
         out = sc.state_log_likelihoods(x)
         if not bool(torch.isfinite(out[:, :S]).all()):
             fail(f"{name} scorer: non-finite scores at the scoring model")
@@ -768,7 +775,7 @@ def phase_adapt_full_width(device, n_utts=32, seconds=10.0, G=10000,
                 _code_agreement(got.numpy(), want.long().numpy(), name)
         print(f"[7] {name} scorer T={T} G={G} (Gp {Gp}) S={S} K={K} D={D}: "
               f"{ms:.3f} ms ({flops[name] * 1e-9:.1f} GFLOP of products in "
-              f"IEEE float32){agree}", flush=True)
+              f"{kinds[name]}){agree}", flush=True)
         res[f"{name}_ms"] = ms
     print(f"[7] one model-CMLLR speaker switch at G={G} (4 classes: fold + "
           f"scorer rebuild, host loop): {switch_s:.3f} s", flush=True)
@@ -2735,7 +2742,8 @@ def _adapt_cpu_job(kind: str, args):
     recognize's argv, a workdir holding the card's .spkc, a recipe, the
     card's features) runs `recognize` on the card's features
     (`_card_features`) and returns its lines, wall s and, per WAV, the
-    exact LNA codes of the same features (`_exact_codes`)."""
+    exact LNA codes of the same features (`synth.exact_lna_codes` on the
+    speaker's model as the scorer holds it)."""
     torch.set_num_threads(2)
     from aaltoasr_tpu_torch.formats.model_io import read_model
     from aaltoasr_tpu_torch.frontend.audio import read_audio
@@ -2764,6 +2772,7 @@ def _adapt_cpu_job(kind: str, args):
         from aaltoasr_tpu_torch.cli import recognize
         from aaltoasr_tpu_torch.formats.recipe import Recipe
         from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+        from aaltoasr_tpu_torch.synth import exact_lna_codes
         mode, argv, same, recipe, feature_dir = args
         _card_features(feature_dir)
         argv = list(argv)
@@ -2776,8 +2785,9 @@ def _adapt_cpu_job(kind: str, args):
         exact = {}
         for rinfo in Recipe.read(recipe):
             pp.set_speaker(rinfo.speaker_id)
-            exact[os.path.basename(rinfo.audio_path)] = _exact_codes(
-                pp.scorer, pp.fg.features(read_audio(rinfo.audio_path)[0]))
+            exact[os.path.basename(rinfo.audio_path)] = exact_lna_codes(
+                pp.scored_model,
+                pp.fg.features(read_audio(rinfo.audio_path)[0]).numpy())
         return ([ln for ln in out.splitlines() if ln.endswith(")")], wall,
                 exact)
     model = read_model(args[0])
@@ -2817,46 +2827,24 @@ def _adapt_cpu_job(kind: str, args):
     return out
 
 
-def _exact_codes(scorer, feats) -> np.ndarray:
-    """2-byte LNA codes of features [T, D] through a diagonal or
-    full-covariance scorer's tables in float64: the exact codes, against
-    which the float32 sides' own rounding is measured."""
-    from aaltoasr_tpu_torch.ops.gmm import lna_normalize, quantize_lna_u16
-    from aaltoasr_tpu_torch.ops.logsemiring import logsumexp
-    x = feats.double()
-    if scorer.full_cov:
-        xx = torch.cat([(x[:, :, None] * x[:, None, :]).flatten(-2), x], -1)
-    else:
-        xx = torch.cat([x * x, x], -1)
-    gll = xx @ scorer.score_matrix.double() + scorer.score_bias.double()
-    ll = logsumexp(gll[:, scorer.comp_idx] + scorer.comp_logw.double(),
-                   dim=-1)[:, :scorer.num_states]
-    return quantize_lna_u16(lna_normalize(ll)).numpy().astype(np.int64)
-
-
-def _codes_floor_check(label, card, cpu, exact) -> str:
-    """LNA codes of the card against the CPU's on the same features:
-    within one step and >= 99% identical; or, where the float32 sums
-    themselves miss that (model CMLLR's full-covariance products cancel
-    on large transforms: two float32 orders round apart), phases 11-12's
-    floor rule on the exact codes: the card's share of codes off them
-    within twice the CPU's (or 1%), its largest step within one of the
-    CPU's."""
-    d_cc, d_ce, d_pe = (np.concatenate([np.abs(a - b).ravel()
-                                        for a, b in zip(x, y)])
-                        for x, y in ((card, cpu), (card, exact),
-                                     (cpu, exact)))
-    same = float((d_cc == 0).mean())
-    off_card, off_cpu = float((d_ce != 0).mean()), float((d_pe != 0).mean())
-    line = (f"LNA codes card vs CPU {100 * same:.3f}% identical, largest "
-            f"step {d_cc.max()}; off the exact (float64) codes: card "
-            f"{100 * off_card:.3f}% (largest step {d_ce.max()}), CPU "
-            f"{100 * off_cpu:.3f}% ({d_pe.max()})")
-    if d_cc.max() <= 1 and same >= 0.99:
-        return line
-    if d_ce.max() > d_pe.max() + 1 or off_card > max(0.01, 2 * off_cpu):
-        fail(f"{label}: {line}")
-    return line + " (the float32 floor)"
+def _codes_check(label, card, cpu, exact) -> str:
+    """LNA codes of the card against the CPU's on the same features and
+    against the exact (float64, centred-form) codes: within one step and
+    >= 99% identical, each."""
+    dists = {}
+    for name, (x, y) in (("card vs CPU", (card, cpu)),
+                         ("card vs exact", (card, exact)),
+                         ("CPU vs exact", (cpu, exact))):
+        d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(x, y)])
+        dists[name] = (float((d == 0).mean()), int(d.max()))
+    line = "LNA codes " + ", ".join(
+        f"{name} {100 * same:.3f}% identical (largest step {step})"
+        for name, (same, step) in dists.items())
+    for name in ("card vs CPU", "card vs exact"):
+        same, step = dists[name]
+        if step > 1 or same < 0.99:
+            fail(f"{label}: {line}")
+    return line
 
 
 def _stats_floor_check(label, card, ref, other, keys, scaled=1e-5) -> str:
@@ -2943,7 +2931,8 @@ def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
     the card against the CPU on the same inputs; (b) `recognize
     --adapt` in every mode on the 1,000-word task with those WAVs, the
     CPU's own .spkc against the card's and the CPU's recognize on the
-    card's .spkc against the card's lines and LNA codes; (c) `FstSearch`,
+    card's .spkc against the card's lines and LNA codes, and those codes
+    against the exact (float64) ones; (c) `FstSearch`,
     `FstConfidence` and `MitFstSearch` (gamma durations) on (b)'s LNAs,
     card against CPU.  Returns the kernels' launch counts over the
     phase."""
@@ -3248,7 +3237,7 @@ def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
         if lines != [card_rec[mode][0][u] for u in checked]:
             fail(f"recognize --adapt {mode}: CPU lines {lines}, card "
                  f"{card_rec[mode][0]}")
-        codes = _codes_floor_check(
+        codes = _codes_check(
             f"recognize --adapt {mode}",
             *([_read_codes(p(d, "lna", f"u{u}.wav.lna")) for u in checked]
               for d in (f"card_{mode}", f"same_{mode}")),
@@ -3270,7 +3259,231 @@ def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
     return launches
 
 
+# -- [14] decision-tree tying and the host-only training tools ---------------
+
+# the tying corpus: triphones of TIE_CENTERS in the TIE_CONTEXTS, each
+# context in one group of TIE_RULES' classes; a state's tone is set by
+# (left group, right group, state), so the splits' gains are unambiguous
+TIE_CENTERS = ("a", "o")
+TIE_CONTEXTS = {"e": 0, "i": 0, "k": 1, "t": 1, "s": 2, "m": 2}
+TIE_RULES = ("VOWEL\tcontext\te,i\nSTOP\tcontext\tk,t\n"
+             "OTHER\tcontext\ts,m\nE\tcontext\te\nK\tcontext\tk\n")
+
+
+def _tie_corpus(root, n_wavs, seconds, rng) -> str:
+    """``n_wavs`` WAVs of ``seconds`` of tones in noise and their
+    state-numbered triphone .phn files (``start end l-c+r.s`` in 16 kHz
+    samples, silence ``_.0`` at both ends), 8-14 frames of 128 samples a
+    state; returns the recipe's path."""
+    from aaltoasr_tpu_torch.synth import write_wav
+    ctx = sorted(TIE_CONTEXTS)
+    lines = []
+    for u in range(n_wavs):
+        segs, n_total = [("_", 0, 150.0, 40 * 128)], 80 * 128
+        while True:
+            c = TIE_CENTERS[rng.integers(len(TIE_CENTERS))]
+            l, r = (ctx[i] for i in rng.integers(len(ctx), size=2))
+            states = [(f"{l}-{c}+{r}", st,
+                       300.0 + 700.0 * TIE_CONTEXTS[l] + 350.0 * st
+                       + 160.0 * TIE_CONTEXTS[r]
+                       + 2200.0 * TIE_CENTERS.index(c),
+                       int(rng.integers(8, 15)) * 128) for st in range(2)]
+            n = sum(x[3] for x in states)
+            if n_total + n > int(16000 * seconds):
+                break
+            segs += states
+            n_total += n
+        segs.append(("_", 0, 150.0, int(16000 * seconds) - n_total + 40 * 128))
+        audio, phn, pos = [], [], 0
+        for label, st, freq, n in segs:
+            t = np.arange(n) / 16000.0
+            audio.append(3000 * np.sin(2 * np.pi * freq * t)
+                         + 120 * rng.standard_normal(n))
+            phn.append(f"{pos} {pos + n} {label}.{st}\n")
+            pos += n
+        write_wav(os.path.join(root, f"u{u}.wav"),
+                  np.concatenate(audio).astype(np.float32))
+        with open(os.path.join(root, f"u{u}.phn"), "w") as f:
+            f.write("".join(phn))
+        lines.append(f"audio={os.path.join(root, f'u{u}.wav')} "
+                     f"transcript={os.path.join(root, f'u{u}.phn')}\n")
+    with open(os.path.join(root, "tie.recipe"), "w") as f:
+        f.write("".join(lines))
+    return os.path.join(root, "tie.recipe")
+
+
+def _tie_cpu_job(argv, feature_dir):
+    """Phase [14]'s CPU side, in a worker process of two threads: `tie
+    --device cpu` on ``argv``, on the card's features (saved under
+    ``feature_dir``) or, with None, on its own frontend's."""
+    torch.set_num_threads(2)
+    from aaltoasr_tpu_torch.cli import tie
+    if feature_dir is not None:
+        _card_features(feature_dir)
+    return _cli(tie.main, argv + ["--device", "cpu"])[2]
+
+
+def _basebind_partition(path) -> tuple[int, list]:
+    """(number of tied states, per HMM state the set of groups of
+    context-phone labels that share a tied state) of a basebind file."""
+    binds = {}
+    for line in open(path):
+        f = line.split()
+        if f and f[0] != "_":
+            binds[f[0]] = [int(x) for x in f[2:]]
+    n = len({i for ids in binds.values() for i in ids})
+    parts = []
+    for st in range(max(len(ids) for ids in binds.values())):
+        groups = {}
+        for label, ids in binds.items():
+            groups.setdefault(ids[st], set()).add(label)
+        parts.append({frozenset(g) for g in groups.values()})
+    return n, parts
+
+
+def _criterion_stats(model, seed):
+    """ML (numerator) and MMI (denominator) statistics for ``model``
+    made from a seed, with the numerator dominating, so the criterion's
+    occupancies are positive."""
+    from aaltoasr_tpu_torch.models.hmm import TransitionTable
+    from aaltoasr_tpu_torch.train import accumulators as acc
+    rng = np.random.default_rng(seed)
+    G, D = model.means.shape
+    stats = acc.HmmStats.zeros(model, TransitionTable.from_model(model),
+                               acc.PDF_ML_STATS | acc.PDF_MMI_STATS)
+    for buf_id, scale in ((acc.ML_BUF, 3.0), (acc.MMI_BUF, 1.0)):
+        buf = stats.buffers[buf_id]
+        gamma = rng.uniform(5, 20, G) * scale
+        centers = model.means + rng.normal(0, 0.4, (G, D)) * np.sqrt(
+            model.covars)
+        buf.gamma[:G] = gamma
+        buf.aux_gamma[:G] = gamma
+        buf.mean_acc[:G] = centers * gamma[:, None]
+        buf.sec_acc[:G] = (model.covars * rng.uniform(0.9, 1.1, (G, D))
+                           + centers ** 2) * gamma[:, None]
+        for st, (idx, w) in enumerate(model.mixtures):
+            buf.mix_gamma[st, :len(idx)] = gamma[idx[0]] * np.asarray(w)
+    stats.num_ll, stats.den_ll, stats.num_frames = -100.0, -150.0, 500
+    return stats
+
+
+def phase_tie(device, card="", n_wavs=16, seconds=8.0, count=200) -> dict:
+    """[14] Decision-tree tying and the host-only training tools: `tie`
+    on ``n_wavs`` synthetic WAVs of ``seconds`` with state-numbered
+    triphone .phn files at phase 11's feature width (D=39, `MFCC_CFG`),
+    on the card, then `tie --device cpu` in two worker processes: on the
+    card's features (basebind and model byte-identical) and on the CPU's
+    own frontend (the same tied-state partition); then `optmodel`,
+    `clsstep` (both steps) and `clskld` on statistics of the tied model
+    on this host.  Neither kernel may launch.  Returns the kernels'
+    launch counts over the phase."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from aaltoasr_tpu_torch.cli import clskld, clsstep, optmodel, tie
+    from aaltoasr_tpu_torch.formats import model_io
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.synth import MFCC_CFG
+    t_phase = time.perf_counter()
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
+    root = tempfile.mkdtemp(prefix="tie", dir=os.environ.get("TMPDIR"))
+    p = lambda *names: os.path.join(root, *names)  # noqa: E731
+    recipe = _tie_corpus(root, n_wavs, seconds, np.random.default_rng(14))
+    with open(p("feats.cfg"), "w") as f:
+        f.write(MFCC_CFG)
+    with open(p("rules"), "w") as f:
+        f.write(TIE_RULES)
+    os.makedirs(p("feats"))
+
+    def argv(side):
+        return ["-c", p("feats.cfg"), "-r", recipe, "-u", p("rules"),
+                "-b", p(f"{side}.bind"), "-o", p(side), "--count",
+                str(count), "--context", "1"]
+
+    own = pool.submit(_tie_cpu_job, argv("own"), None)
+    with _recording_features(p("feats")):
+        _, _, wall = _cli(tie.main, argv("card") + ["--device", device.type])
+    same = pool.submit(_tie_cpu_job, argv("same"), p("feats"))
+    frames = sum(np.load(p("feats", name)).shape[0]
+                 for name in os.listdir(p("feats")))
+    n_card, part_card = _basebind_partition(p("card.bind"))
+    if n_card < 4:
+        fail(f"tie: only {n_card} tied states")
+    same_wall, own_wall = same.result(), own.result()
+    if open(p("same.bind"), "rb").read() != open(p("card.bind"), "rb").read():
+        fail("tie: the CPU's basebind on the card's features differs")
+    for ext in ("ph", "gk", "mc"):
+        if (open(p(f"same.{ext}"), "rb").read()
+                != open(p(f"card.{ext}"), "rb").read()):
+            fail(f"tie: the CPU's .{ext} on the card's features differs")
+    n_own, part_own = _basebind_partition(p("own.bind"))
+    if (n_own, part_own) != (n_card, part_card):
+        fail(f"tie: the CPU's own frontend ties {n_own} states, the card "
+             f"{n_card}, or groups them otherwise")
+    print(f"[14] tie on {n_wavs} x {seconds:g} s ({frames} frames of "
+          f"D=39, {len(TIE_CENTERS)} centers x {len(TIE_CONTEXTS)}^2 "
+          f"contexts x 2 states, --count {count}): {wall:.2f} s on the "
+          f"card, {n_card} tied states; the CPU on the card's features "
+          f"{same_wall:.2f} s (basebind and model byte-identical), on its "
+          f"own frontend {own_wall:.2f} s (the same partition)", flush=True)
+
+    # the host-only tools on statistics of the tied model
+    model = model_io.read_model(p("card"))
+    _criterion_stats(model, 15).dump(p("st"))
+    with open(p("st.lst"), "w") as f:
+        f.write(p("st") + "\n")
+    walls = {}
+    # --minvar: the tied model's own variance floor (its tones leave some
+    # dimensions near constant)
+    minvar = ["--minvar", "0.001"]
+    _, _, walls["optmodel"] = _cli(optmodel.main, [
+        "-b", p("card"), "-L", p("st.lst"), "-F", p("opt.osf.npz"),
+        "-o", p("opt"), "--ml", "1.0", "--mmi", "1.0", "--limit", "0.1"]
+        + minvar)
+    for out, extra in (("cls", []), ("kldcs", ["--kldcs"])):
+        _, _, walls[" ".join(["clsstep"] + extra)] = _cli(clsstep.main, [
+            "-b", p("card"), "-L", p("st.lst"), "-o", p(out), "-M", "MMI",
+            "--limit", "0.1"] + minvar + extra)
+    moved = {}
+    for name in ("opt", "cls", "kldcs"):
+        m = model_io.read_model(p(name))
+        if not (np.isfinite(m.means).all() and np.isfinite(m.covars).all()
+                and (m.covars > 0).all()):
+            fail(f"{name}: non-finite or non-positive parameters")
+        moved[name] = float(np.abs(m.means - model.means).max())
+        if moved[name] == 0.0:
+            fail(f"{name}: the model did not move")
+    if moved["opt"] > 0.1 + 1e-6:
+        fail(f"optmodel moved a mean by {moved['opt']}, past --limit 0.1")
+    out, _, walls["clskld"] = _cli(clskld.main, [
+        "--base1", p("card"), "--base2", p("kldcs"), "-g", "-w"])
+    klds = np.array([float(v) for v in out.split()])
+    if (len(klds) != model.num_gaussians + len(model.mixtures)
+            or not np.isfinite(klds).all() or klds.min() < -1e-9):
+        fail(f"clskld: {len(klds)} values, min {klds.min()}")
+    print(f"[14] on the tied model ({model.num_gaussians} Gaussians): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; largest mean move optmodel {moved['opt']:.4f} (--limit "
+          f"0.1), clsstep {moved['cls']:.4f}, --kldcs "
+          f"{moved['kldcs']:.4f}; clskld {len(klds)} KLDs, largest "
+          f"{klds.max():.4f}", flush=True)
+    pool.shutdown()
+    shutil.rmtree(root)
+    launches = {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+    if any(launches.values()):
+        fail(f"a TPU kernel launched in phase [14]: {launches}")
+    print(f"[14] K1/K2 launches {launches}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the GPU")
     import aaltoasr_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3309,6 +3522,7 @@ def main() -> int:
     train_launches = phase_train(device, card=card)
     discrim_launches = phase_discrim(device, card=card)
     adapt_launches = phase_adapt_fst(device, task, card=card)
+    tie_launches = phase_tie(device, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -3329,8 +3543,12 @@ def main() -> int:
         k["launches_phase12"] = discrim_launches[k["name"]]
         # [13]: adaptation estimation, recognize --adapt, FST decoding
         k["launches_phase13"] = adapt_launches[k["name"]]
+        # [14]: tie and the host-only training tools
+        k["launches_phase14"] = tie_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
+    print(f"[15] the whole script took {time.perf_counter() - t_start:.1f} "
+          f"s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ from aaltoasr_tpu_torch.cli.mllt import main as t_mllt
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.quanteq import main as t_quanteq
 from aaltoasr_tpu_torch.cli.segfea import main as t_segfea
+from aaltoasr_tpu_torch.cli.tie import main as t_tie
 from aaltoasr_tpu_torch.cli.vtln import main as t_vtln
 from aaltoasr_tpu_torch.frontend import generator as T_gen
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs as TPhoneProbs
@@ -269,7 +270,7 @@ def test_feadot_matches_reference(tmp_path, capsys, cfg):
     assert capsys.readouterr().out == ref
 
 
-@pytest.mark.parametrize("tool", ["feacat", "feadot"])
+@pytest.mark.parametrize("tool", ["feacat", "feadot", "tie"])
 def test_tools_without_device_raise_with_no_gpu(tmp_path, monkeypatch,
                                                 tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -278,8 +279,13 @@ def test_tools_without_device_raise_with_no_gpu(tmp_path, monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if tool == "feacat":
             t_feacat([str(tmp_path / "a.wav"), "-c", str(tmp_path / "f.cfg")])
-        else:
+        elif tool == "feadot":
             t_feadot(["-c", str(tmp_path / "f.cfg")])
+        else:
+            (tmp_path / "r").write_text(f"audio={tmp_path / 'a.wav'}\n")
+            (tmp_path / "u").write_text("V context a\n")
+            t_tie(["-c", str(tmp_path / "f.cfg"), "-r", str(tmp_path / "r"),
+                   "-u", str(tmp_path / "u"), "-b", str(tmp_path / "bb")])
 
 
 # -- the estimation CLIs: vtln, mllr, mllt, lda, quanteq, feanorm, segfea --
