@@ -303,6 +303,31 @@ def exact_lna_codes(model: model_io.HmmModel, feats,
     return quantize_lna_u16(lna_normalize(ll)).numpy().astype(np.int64)
 
 
+class _Float64Tables(dict):
+    """An `Op.table` cache that keeps its tables in float64."""
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value.double())
+
+
+def exact_features(config_text: str, samples, n_frames) -> np.ndarray:
+    """[B, T_pad, dim] features of [B, S] samples with [B] frame counts
+    under a feature configuration, on the CPU with every table, parameter
+    and operation in float64: the reference against which float32
+    frontends (and, through `exact_lna_codes`, their LNA codes) are
+    measured."""
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    fg = FeatureGenerator(FeatureConfig.parse(config_text), device="cpu")
+    for op in fg.ops.values():
+        op.__dict__["_tables"] = _Float64Tables()
+    fg._dev_params = {name: {k: v.double() for k, v in params.items()}
+                      for name, params in fg._dev_params.items()}
+    samples = torch.as_tensor(np.asarray(samples), dtype=torch.float64)
+    return fg._run(samples, torch.as_tensor(np.asarray(n_frames)),
+                   fg.num_frames(samples.shape[1])).numpy()
+
+
 def nearest_clusters(means: np.ndarray, num_clusters: int,
                      seed: int = 0) -> np.ndarray:
     """[G] cluster per Gaussian: the nearest (Euclidean) of

@@ -90,7 +90,7 @@ Phases, each printing a summary line:
    (b) `align`, `stats` and `estimate` on 8 WAVs of 8 s with 100-label
    transcripts, normalized splice + LDA features and the same model as
    files, `stats` against the CPU by the same rule; (c) `train`, 2 EM
-   iterations with a split, `--durations` and 256 clusters: the
+   iterations with a split, `--durations` and 64 clusters: the
    log-likelihood must rise and its first model match (b)'s estimate,
    each stage timed;
 12. discriminative training on HMM networks, which launches the kernels
@@ -111,8 +111,9 @@ Phases, each printing a summary line:
    mpe and mpfe-pdf error modes, `train_ebw --criterion mmi` for 2
    iterations (its first model against `estimate --mmi` on `stats
    --mmi`'s dumps), `opt_ebw_d`, and `recognize --stateseg` on 2 LNAs,
-   each on the CPU too on the same files (networks from the card's
-   log-probs and .stateseg files from the card's LNAs byte-identical;
+   each on the CPU too on the same files (the first 2 utterances'
+   networks from the card's log-probs and .stateseg files from the
+   card's LNAs byte-identical;
    statistics and `train_ebw` from the card's features by (a)'s rule),
    each stage timed;
 13. speaker adaptation and FST decoding, which launch neither kernel
@@ -138,7 +139,33 @@ Phases, each printing a summary line:
    no further from the exact (float64) codes than twice the CPU; (c) `FstSearch` and `FstConfidence` over an 8-path
    hmmnet grammar and `MitFstSearch` with gamma durations over a
    30-phone loop, on (b)'s first 2 LNAs: words, paths and scores (rel
-   1e-5) and confidences as the CPU's, ms a frame.
+   1e-5) and confidences as the CPU's, ms a frame;
+14. decision-tree tying and the host-only tools, which launch neither
+   kernel: `tie` on 16 WAVs of 8 s with state-numbered triphone
+   transcripts on the card, then on the CPU in spawned workers on the
+   card's features (basebind and model byte-identical) and on its own
+   frontend (the same partition); `optmodel`, `clsstep` and `clskld` on
+   seeded statistics of the tied model;
+15. scale-out and tracing, which launch neither kernel: (a) the data x
+   model EM step (`parallel.sharded_train_step`) on a 1 x 1 NCCL mesh
+   (`make_mesh()`) at phase 11's E-step point: ll against the card's
+   own `estep.batch_chain_stats` (plain FB, rel 1e-4), the step's
+   E-step statistics (`sharded_estep`) against it within twice the
+   spread between the card's two FB forms, and on its first 2
+   utterances against the CPU's in a spawned worker (within twice the
+   CPU's own spread between its two FB forms); its M-step against the
+   float64 ML update of its own statistics (means, covariances and
+   weights rtol = atol = 2e-3); frames/s (median of 3 calls) beside
+   phase 11's plain-FB rate, peak memory, and the kernel launches a
+   frame and the busy share read from the Chrome trace that
+   `utils.profiling.device_trace` wrote for one call; (b)
+   `__graft_entry_torch__.entry()`'s features on the card against the
+   CPU's (rtol = atol = 1e-4), and its forward against the same forward
+   on the CPU (LNA codes within one step and >= 99% identical or, as
+   the entry's model is not placed on its features, within twice the
+   CPU's distance from the exact float64 codes), timed;
+   (c) `dryrun_multichip(8)`: its six phases over 8 gloo ranks on the
+   card's host.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -1759,21 +1786,30 @@ def _profile_call(fn, device, frames: int, cpu: bool = True) -> str:
                  + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         fn()
         sync(device)
-    dev = [e for e in prof.events()
+    dev = [(not e.name.startswith(("Memcpy", "Memset")),
+            e.time_range.start, e.time_range.end) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return "device events: not measured (the profiler saw none)"
-    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
-    busy = sum(e.time_range.end - e.time_range.start for e in dev)
-    span = (max(e.time_range.end for e in dev)
-            - min(e.time_range.start for e in dev))
-    return (f"{(len(dev) - copies) / frames:.1f} kernel launches and "
-            f"{copies / frames:.2f} copies or fills a frame, device busy "
-            f"{100.0 * busy / span:.1f}% of {span / 1e3:.1f} ms "
-            f"(profiler, one call)")
+    return _busy_line(dev, frames, "profiler, one call")
 
 
-def _floor_check(label, got, ref, other, keys, scaled=1e-6):
+def _busy_line(dev, frames: int, source: str) -> str:
+    """Kernel launches and copies or fills a frame and the device-busy
+    share of one call from its device events ``dev``, (is a kernel,
+    start, end) in microseconds: `_profile_call`'s and
+    `_trace_profile`'s one rule."""
+    kernels = sum(k for k, _, _ in dev)
+    busy = sum(end - start for _, start, end in dev)
+    span = max(end for *_, end in dev) - min(start for _, start, _ in dev)
+    return (f"{kernels / frames:.1f} kernel launches and "
+            f"{(len(dev) - kernels) / frames:.2f} copies or fills a frame, "
+            f"device busy {100.0 * busy / span:.1f}% of {span / 1e3:.1f} ms "
+            f"({source})")
+
+
+def _floor_check(label, got, ref, other, keys, scaled=1e-6,
+                 against="CPU"):
     """``got`` (the card) against ``ref`` (the CPU, same FB form): each
     key's largest deviation within twice the CPU's own spread between
     its two FB forms (``other`` the second form) plus ``scaled`` of the
@@ -1782,7 +1818,8 @@ def _floor_check(label, got, ref, other, keys, scaled=1e-6):
     At T=1,000 and log-likelihoods near 1e5 float32 log posteriors
     carry errors of ~sqrt(T) ulps, so two float32 orders of the same
     sums differ by percents; the floor is measured in the same run.
-    Returns the report line; fails beyond the bound."""
+    ``against`` names the reference in the report.  Returns the report
+    line; fails beyond the bound."""
     parts = []
     for k in keys:
         a = np.asarray(ref[k], np.float64)
@@ -1791,9 +1828,9 @@ def _floor_check(label, got, ref, other, keys, scaled=1e-6):
         scale = max(float(np.abs(a).max()), 1e-30)
         parts.append(f"{k} {dev / scale:.2e} (floor {floor / scale:.2e})")
         if dev > 2 * floor + scaled * scale + 2 * (k == "feacount"):
-            fail(f"{label}: {k} deviates {dev:.4g} from the CPU's, beyond "
-                 f"twice the CPU's own spread {floor:.4g}")
-    return f"{label}: max |card - CPU| / scale: " + ", ".join(parts)
+            fail(f"{label}: {k} deviates {dev:.4g} from the {against}'s, "
+                 f"beyond twice its own spread {floor:.4g}")
+    return f"{label}: max |card - {against}| / scale: " + ", ".join(parts)
 
 
 def _same_numbers_check(label, got, ref, keys):
@@ -1852,14 +1889,15 @@ class _StageClock(io.StringIO):
 
 
 def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
-                seconds=8.0, n_phn=100, clusters=256, reps=3) -> dict:
+                seconds=8.0, n_phn=100, clusters=64, reps=3):
     """[11] ML training on the card (no kernel of its own, and neither
     K1 nor K2 may launch): (a) the E-step at bench.py's `estep_fps`
     point in both FB forms, timed, profiled, peak memory, the first
     utterance against the CPU; (b) `align`, `stats` and `estimate` on a
     corpus at the bench's width, `stats` against the CPU; (c) `train`,
     2 EM iterations with a split, durations and clusters, its first model
-    against (b)'s.  Returns the kernels' launch counts over the phase."""
+    against (b)'s.  Returns the kernels' launch counts over the phase and
+    the plain-FB E-step's frames/s."""
     import multiprocessing
     import shutil
     from concurrent.futures import ProcessPoolExecutor
@@ -1890,6 +1928,7 @@ def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
     x = torch.as_tensor(feats, device=device)
     n = torch.full((B,), T, dtype=torch.int64, device=device)
     first = {}                  # the card's first utterance, per FB form
+    rates = {}
     for v in ("plain", "shift"):
         g = estep.stack_graphs([_estep_graph(pad, v)] * B, device)
 
@@ -1910,7 +1949,7 @@ def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
         host = fetch(out)
         first[v] = {k: a[0] for k, a in host.items()}
         wall = float(np.median(walls))
-        fps = B * T / wall
+        fps = rates[v] = B * T / wall
         lls = host["log_likelihood"]
         if not np.all(np.isfinite(lls)) or np.any(lls <= -1e29):
             fail(f"E-step ({v}): no valid path in the batch")
@@ -2058,7 +2097,7 @@ def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
     print(f"[11] launches over the phase {launches} (neither kernel is on "
           f"this path); phase 11 took {time.perf_counter() - t_phase:.1f} s "
           f"on {card}", flush=True)
-    return launches
+    return launches, rates["plain"]
 
 
 # discriminative training at phase 11's E-step point: a numerator network
@@ -2382,7 +2421,7 @@ def _write_corpus_phn(task, root, n_wavs, n_phn, rng):
 
 def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
                   n_wavs=4, seconds=8.0, n_phn=60, tokens=64,
-                  max_seg_dur=16, n_lna=2, cpu_utts=1,
+                  max_seg_dur=16, n_lna=2, cpu_utts=1, cpu_nets=2,
                   task_args=TASK) -> dict:
     """[12] Discriminative training on hmmnets on the card: (a) the
     mpv FB, the MMI denominator pass, `mpe_stats` (mpfe-pdf) and
@@ -2392,9 +2431,9 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
     `stats -H` (and -M mpv, --mmi, --mpe in the mpe and mpfe-pdf error
     modes), `train_ebw`, `opt_ebw_d` and `recognize --stateseg` on the
     1,000-word task's WAVs, each against the CPU on the same files (the
-    statistics on the first ``cpu_utts`` utterances, `train_ebw` on all
-    and, for the comparison, on those; the CPU from the card's features
-    and log-probs); K1
+    networks of the first ``cpu_nets`` utterances, the statistics on the
+    first ``cpu_utts``, `train_ebw` on all and, for the comparison, on
+    those; the CPU from the card's features and log-probs); K1
     and K2 launch once per utterance each in `make_hmmnets -d` and
     nowhere else.  The task is built with monophones: `wordgraph_hmmnet`
     expands each pronunciation by its phone labels, as the reference's
@@ -2546,7 +2585,7 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
                           "aaltoasr_tpu_torch.cli.make_hmmnets",
                           (base + ["-r", p("cpu.recipe"), "-B", str(n_wavs),
                                    "-I", str(u + 1)] + mh, p("feats")))
-              for u in range(n_wavs)]
+              for u in range(cpu_nets)]
     if mh_launches != {"mfcc_core": n_wavs, "gmm_state_ll": n_wavs}:
         fail(f"make_hmmnets -d: kernel launches {mh_launches}, not one "
              f"each per utterance ({n_wavs})")
@@ -2627,7 +2666,7 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
         fut.result()
     print(f"[12]   the CPU's networks at {time.perf_counter() - t_phase:.1f}"
           " s", flush=True)
-    for u in range(n_wavs):
+    for u in range(cpu_nets):
         for k in ("num", "den"):
             if (open(p(f"card{u}.{k}"), "rb").read()
                     != open(p(f"cpu{u}.{k}"), "rb").read()):
@@ -2638,8 +2677,9 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
           f"transcripts, the 1,000-word task's model placed on the "
           f"features; make_hmmnets -d (--tokens {tokens}) "
           f"{walls['make_hmmnets -d']:.2f} s, K1/K2 launches {mh_launches}"
-          f"; networks byte-identical on the CPU (decoding the card's "
-          f"log-probs); denominators " + "; ".join(str(g) for g in sizes),
+          f"; networks of the first {cpu_nets} byte-identical on the CPU "
+          f"(decoding the card's log-probs); denominators "
+          + "; ".join(str(g) for g in sizes),
           flush=True)
     modes = {name: (acc_mod.PDF_ML_STATS
                     | (acc_mod.PDF_MMI_STATS if "mmi" in name else 0)
@@ -3482,6 +3522,310 @@ def phase_tie(device, card="", n_wavs=16, seconds=8.0, count=200) -> dict:
     return launches
 
 
+def _ml_update(params, stats, minvar) -> dict:
+    """The ML update of `parallel.sharded_train_step` in float64 numpy
+    on summed statistics (gamma, mean_acc, sec_acc [Gp, ...], mix_gamma
+    [Sp, K]); the mixture weights linear (LOG_ZERO slots 0)."""
+    G = params["means"].shape[0]
+    gamma = stats["gamma"][:G]
+    has = gamma > 0
+    safe = np.where(has, gamma, 1.0)[:, None]
+    mean = stats["mean_acc"][:G] / safe
+    cov = np.maximum(stats["sec_acc"][:G] / safe - mean ** 2, minvar)
+    mg = stats["mix_gamma"]
+    tot = mg.sum(1, keepdims=True)
+    logw = np.asarray(params["comp_logw"], np.float64)
+    w = np.where(tot > 0, mg / np.maximum(tot, 1e-30), np.exp(logw))
+    return {"means": np.where(has[:, None], mean, params["means"]),
+            "covars": np.where(has[:, None], cov, params["covars"]),
+            "weights": np.where(logw <= -0.5e30, 0.0, w)}
+
+
+def _step_host(params, ll) -> dict:
+    """`sharded_train_step`'s outputs on the host, the log weights as
+    linear weights (LOG_ZERO slots 0), as `_ml_update` gives them."""
+    logw = params["comp_logw"].double().cpu().numpy()
+    return {"means": params["means"].double().cpu().numpy(),
+            "covars": params["covars"].double().cpu().numpy(),
+            "weights": np.where(logw <= -0.5e30, 0.0, np.exp(logw)),
+            "ll": float(ll)}
+
+
+def _scaleout_inputs(point, device, n_utts=None):
+    """Phase 15's step inputs at an E-step point: the model's Gaussians
+    as float32 params with the scorer's component tables (numpy); the
+    features, the stacked plain chain graphs and the frame counts of the
+    first ``n_utts`` utterances on ``device``; the scorer, the
+    transition table and the chain graph."""
+    from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+    from aaltoasr_tpu_torch.train import estep
+    model, table, pad, feats = _estep_inputs(**point)
+    feats = feats[:n_utts]
+    B, T = feats.shape[:2]
+    scorer = GmmScorer.from_model(model, device=device)
+    params = {"means": model.means.astype(np.float32),
+              "covars": model.covars.astype(np.float32),
+              "comp_idx": scorer.comp_idx.cpu().numpy(),
+              "comp_logw": scorer.comp_logw.cpu().numpy()}
+    return (params, torch.as_tensor(feats, device=device),
+            estep.stack_graphs([pad] * B, device),
+            torch.full((B,), T, dtype=torch.int64, device=device),
+            scorer, table, pad)
+
+
+def _batch_stats(scorer, x, pad, n, table, shift=False) -> dict:
+    """`estep.batch_chain_stats` over the chain graph ``pad`` for every
+    utterance (plain FB, or the shift-compiled form)."""
+    from aaltoasr_tpu_torch.train import estep
+    g = estep.stack_graphs([_estep_graph(pad, "shift" if shift else "plain")]
+                           * x.shape[0], x.device)
+    return estep.batch_chain_stats(scorer, x, g, n, table.num_slots)
+
+
+def _scaleout_cpu_job(point, n_utts):
+    """Phase [15]'s CPU side, in a worker process of two threads: the
+    step's E-step (`sharded_estep`) on a one-process gloo mesh over the
+    point's first ``n_utts`` utterances, and `batch_chain_stats` in the
+    shift-compiled FB form (the CPU's own float32 spread)."""
+    torch.set_num_threads(2)
+    import torch.distributed as dist
+    from aaltoasr_tpu_torch.parallel.mesh import make_mesh, sharded_estep
+    cpu = torch.device("cpu")
+    params, x, g, n, scorer, table, pad = _scaleout_inputs(point, cpu,
+                                                           n_utts)
+    est = sharded_estep(make_mesh(device=cpu), table.num_slots)
+    G = params["means"].shape[0]
+    out = {"step": _host_stats(est(params, x, g, n), G),
+           "shift": _host_stats(_batch_stats(scorer, x, pad, n, table,
+                                             shift=True), G)}
+    dist.destroy_process_group()
+    if "jax" in sys.modules:
+        raise RuntimeError("the scale-out worker loaded jax")
+    return out
+
+
+# the statistics phase 15 holds: every one the M-step reads
+SCALEOUT_KEYS = ("gamma", "mean_acc", "sec_acc", "mix_gamma")
+
+
+def _host_stats(st, G) -> dict:
+    """Statistics (the step's or `batch_chain_stats`'s) in float64 on the
+    host, the pool's keys cut to its G Gaussians and the
+    log-likelihood as ``ll``."""
+    out = {k: np.asarray(st[k].double().cpu() if torch.is_tensor(st[k])
+                         else st[k], np.float64)
+           for k in SCALEOUT_KEYS}
+    for k in ("gamma", "mean_acc", "sec_acc"):
+        out[k] = out[k][:G]
+    out["ll"] = float(st["ll"] if "ll" in st else st["log_likelihood"])
+    return out
+
+
+def _trace_profile(trace_dir, frames, device) -> str:
+    """Kernel launches a frame and the device-busy share from the
+    Chrome trace `device_trace` wrote into ``trace_dir`` (kernels, copies
+    and fills are the device's events)."""
+    paths = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(paths) != 1:
+        fail(f"device_trace wrote {len(paths)} traces into {trace_dir}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    if device.type != "cuda":
+        return f"profile not measured (CPU; {len(events)} trace events)"
+    dev = [(e["cat"] == "kernel", e["ts"], e["ts"] + e["dur"])
+           for e in events if e.get("ph") == "X" and e.get("cat") in (
+               "kernel", "gpu_memcpy", "gpu_memset")]
+    if not any(k for k, _, _ in dev):
+        fail("the trace device_trace wrote holds no CUDA kernel")
+    return _busy_line(dev, frames, f"device_trace, one call, "
+                      f"{os.path.getsize(paths[0]) / 2**20:.1f} MiB of trace")
+
+
+def phase_scaleout(device, card="", point=ESTEP_POINT, plain_fps=None,
+                   reps=3, cpu_utts=2, minvar=0.1, n_ranks=8) -> dict:
+    """[15] Scale-out and tracing (no kernel of its own, and neither K1
+    nor K2 may launch): (a) `sharded_train_step` on the 1 x 1 mesh
+    `make_mesh()` builds on the card (NCCL) at the E-step point: its
+    E-step's statistics against `estep.batch_chain_stats` on the card
+    and, on the first ``cpu_utts`` utterances, against the CPU's in a
+    worker; its M-step against the float64 ML update of its own
+    statistics; timed, peak memory, profiled through `device_trace`;
+    (b) the torch graft entry's features and forward on the card
+    against the CPU, timed; (c)
+    `dryrun_multichip(n_ranks)`.  Returns the kernels' launch counts over
+    the phase."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    import torch.distributed as dist
+    import __graft_entry_torch__ as graft
+    from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
+    from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
+    from aaltoasr_tpu_torch.ops.frontend_cuda import mfcc_core
+    from aaltoasr_tpu_torch.ops.gmm import quantize_lna_u16
+    from aaltoasr_tpu_torch.ops.gmm_cuda import gmm_state_ll
+    from aaltoasr_tpu_torch.parallel.mesh import (
+        make_mesh, replicate, sharded_estep, sharded_train_step)
+    from aaltoasr_tpu_torch.synth import (
+        MFCC_CFG, exact_features, exact_lna_codes, random_model)
+    from aaltoasr_tpu_torch.utils.profiling import device_trace
+    t_phase = time.perf_counter()
+    mfcc_core.launches = 0
+    gmm_state_ll.launches = 0
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    cpu_job = pool.submit(_scaleout_cpu_job, point, cpu_utts)
+
+    # (a) the EM step on a 1 x 1 NCCL mesh at the E-step point
+    B, T = point["B"], point["T"]
+    params, x, g, n, scorer, table, pad = _scaleout_inputs(point, device)
+    mesh = make_mesh(device=device)
+    step = sharded_train_step(mesh, table.num_slots, minvar)
+    on_mesh = replicate(params, mesh)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = step(on_mesh, x, g, n)
+    sync(device)
+    peak = _peak_gib(device)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = step(on_mesh, x, g, n)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    fps = B * T / wall
+    trace_dir = tempfile.mkdtemp(prefix="trace", dir=os.environ.get("TMPDIR"))
+    with contextlib.redirect_stderr(io.StringIO()) as said:
+        with device_trace(trace_dir):
+            step(on_mesh, x, g, n)
+            sync(device)
+    if said.getvalue() != f"device trace written to {trace_dir}\n":
+        fail(f"device_trace said {said.getvalue()!r}")
+    profile = _trace_profile(trace_dir, T, device)
+    shutil.rmtree(trace_dir)
+    got = _step_host(*out)
+    # the step's E-step against batch_chain_stats on the card (twice the
+    # spread between the two FB forms there), then its M-step against
+    # the float64 ML update of its own statistics (rtol = atol = 2e-3,
+    # `tests/test_parallel.py`'s tolerance: FB noise does not enter)
+    G = params["means"].shape[0]
+    mine = _host_stats(sharded_estep(mesh, table.num_slots)(on_mesh, x, g, n),
+                       G)
+    ref = _host_stats(_batch_stats(scorer, x, pad, n, table), G)
+    if not (np.isfinite(got["ll"]) and got["ll"] > -1e29):
+        fail(f"scale-out step: log-likelihood {got['ll']}")
+    if abs(got["ll"] - ref["ll"]) > 1e-4 * abs(ref["ll"]):
+        fail(f"scale-out step: log-likelihood {got['ll']}, the E-step's "
+             f"{ref['ll']}")
+    held = _floor_check(
+        "E-step statistics", mine, ref, _host_stats(_batch_stats(
+            scorer, x, pad, n, table, shift=True), G), SCALEOUT_KEYS,
+        against="batch_chain_stats")
+    ml = _ml_update(params, mine, minvar)
+    parts = []
+    for k in ("means", "covars", "weights"):
+        d = np.abs(got[k] - ml[k])
+        beyond = int((d > 2e-3 + 2e-3 * np.abs(ml[k])).sum())
+        parts.append(f"{k} max |d| {d.max():.3g}, {beyond} beyond")
+        if beyond:
+            fail(f"scale-out step: {beyond} {k} beyond rtol = atol = 2e-3 "
+                 f"of the ML update of its own statistics (max |d| "
+                 f"{d.max():.4g})")
+    floored = int((ml["covars"] <= minvar).sum())
+    rate = (f"phase 11's plain FB {plain_fps:.0f} frames/s in this run, "
+            f"{fps / plain_fps:.2f}x" if plain_fps else "phase 11 not run")
+    print(f"[15] EM step (sharded_train_step, 1 x 1 "
+          f"{dist.get_backend().upper()} mesh) B={B} T={T} "
+          f"P={g['pdf'].shape[1]} G={point['G']} K={point['K']} "
+          f"D={point['D']}: {fps:.0f} frames/s (median of {reps} calls, "
+          f"{wall * 1e3:.1f} ms a call: "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls) + f"; {rate}); "
+          f"peak {peak}; {profile}", flush=True)
+    print(f"[15]   ll {got['ll']:.3f}, batch_chain_stats' {ref['ll']:.3f}; "
+          f"{held}", flush=True)
+    print(f"[15]   M-step against the float64 ML update of the step's own "
+          f"statistics (rtol = atol = 2e-3; {floored} covariances "
+          f"at minvar {minvar:g}): " + "; ".join(parts), flush=True)
+    sub = slice(0, cpu_utts)
+    card2 = _host_stats(sharded_estep(mesh, table.num_slots)(
+        on_mesh, x[sub], {k: v[sub] for k, v in g.items()}, n[sub]), G)
+    cpu = cpu_job.result()
+    if abs(card2["ll"] - cpu["step"]["ll"]) > 1e-5 * abs(cpu["step"]["ll"]):
+        fail(f"scale-out step on {cpu_utts} utterances: log-likelihood "
+             f"{card2['ll']} on the card, {cpu['step']['ll']} on the CPU")
+    print(f"[15]   on {cpu_utts} utterances, ll {card2['ll']:.3f} (card) "
+          f"{cpu['step']['ll']:.3f} (CPU); " + _floor_check(
+              "E-step statistics", card2, cpu["step"], cpu["shift"],
+              SCALEOUT_KEYS), flush=True)
+    dist.destroy_process_group()
+    pool.shutdown()
+
+    # (b) the torch graft entry on the card against the CPU
+    forward, (samples, n_frames) = graft.entry(device=device)
+    lp = forward(samples, n_frames)
+    sync(device)
+    ms = timed_ms(lambda: forward(samples, n_frames), device)
+    cpu_fwd, (cpu_samples, cpu_n) = graft.entry(device="cpu")
+    codes = quantize_lna_u16(lp).cpu().numpy().astype(np.int64)
+    cpu_codes = quantize_lna_u16(cpu_fwd(cpu_samples, cpu_n)).numpy().astype(
+        np.int64)
+    # the exact codes come from the port's frontend in float64: hold the
+    # card's float32 features to the CPU's first (features to ~18)
+    feats = [FeatureGenerator(FeatureConfig.parse(MFCC_CFG), device=d)._run(
+        samples.to(d), n_frames.to(d), lp.shape[1]).double().cpu().numpy()
+        for d in (device, "cpu")]
+    feat_dev = float(np.abs(feats[0] - feats[1]).max())
+    if not np.allclose(feats[0], feats[1], rtol=1e-4, atol=1e-4):
+        fail(f"graft entry: features on the card deviate up to {feat_dev:.4g} "
+             f"from the CPU's, beyond rtol = atol = 1e-4")
+    exact = np.stack([exact_lna_codes(random_model(), f) for f in
+                      exact_features(MFCC_CFG, cpu_samples, cpu_n)])
+    same = {k: float((codes == v).mean()) for k, v in
+            (("CPU", cpu_codes), ("exact", exact))}
+    same["CPU vs exact"] = float((cpu_codes == exact).mean())
+    steps = max(int(np.abs(codes - cpu_codes).max()),
+                int(np.abs(codes - exact).max()))
+    # the entry's model is not placed on its features, so float32 in
+    # another order moves > 1% of its codes: the card must then stay
+    # within twice the CPU's own distance from the exact codes
+    if steps > 1 or (same["CPU"] < 0.99 and 1 - same["exact"]
+                     > 2 * (1 - same["CPU vs exact"])):
+        fail(f"graft entry: LNA codes card vs CPU {same['CPU']:.5f} "
+             f"identical, card vs exact {same['exact']:.5f}, CPU vs exact "
+             f"{same['CPU vs exact']:.5f}, largest step {steps}")
+    print(f"[15] graft entry forward (B={samples.shape[0]} x "
+          f"{samples.shape[1]} samples, MFCC + GMM G=512 S=128, unfused): "
+          f"{ms:.3f} ms a call ("
+          f"{'CUDA events' if device.type == 'cuda' else 'host clock'}); "
+          f"features card vs CPU max |d| {feat_dev:.3g}; LNA codes card "
+          f"vs CPU {100 * same['CPU']:.3f}% identical, card vs exact "
+          f"{100 * same['exact']:.3f}%, CPU vs exact "
+          f"{100 * same['CPU vs exact']:.3f}%, largest step {steps}",
+          flush=True)
+
+    # (c) the multi-rank dry run, on this host's CPU
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        graft.dryrun_multichip(n_ranks)
+    lines = said.getvalue().splitlines()
+    if len(lines) != 6 or not all(ln.startswith("dryrun phase ok: ")
+                                  for ln in lines):
+        fail(f"dryrun_multichip({n_ranks}) printed {lines}")
+    print(f"[15] dryrun_multichip({n_ranks}), {n_ranks} gloo ranks on the "
+          f"host's CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    for ln in lines:
+        print(f"[15]   {ln}", flush=True)
+    launches = {"mfcc_core": mfcc_core.launches,
+                "gmm_state_ll": gmm_state_ll.launches}
+    if any(launches.values()):
+        fail(f"a TPU kernel launched in phase [15]: {launches}")
+    print(f"[15] K1/K2 launches {launches}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3519,10 +3863,12 @@ def main() -> int:
         phase_lattice(device, task, recognize_argv, card=card)
         stream = phase_stream(device, task, recognize_argv, card=card)
     phase_adapt_full_width(device)
-    train_launches = phase_train(device, card=card)
+    train_launches, plain_fps = phase_train(device, card=card)
     discrim_launches = phase_discrim(device, card=card)
     adapt_launches = phase_adapt_fst(device, task, card=card)
     tie_launches = phase_tie(device, card=card)
+    scaleout_launches = phase_scaleout(device, card=card,
+                                       plain_fps=plain_fps)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -3545,10 +3891,12 @@ def main() -> int:
         k["launches_phase13"] = adapt_launches[k["name"]]
         # [14]: tie and the host-only training tools
         k["launches_phase14"] = tie_launches[k["name"]]
+        # [15]: the data x model EM step, the torch graft entry
+        k["launches_phase15"] = scaleout_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
-    print(f"[15] the whole script took {time.perf_counter() - t_start:.1f} "
-          f"s on {card}", flush=True)
+    print(f"[total] the whole script took "
+          f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

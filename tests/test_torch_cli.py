@@ -38,7 +38,10 @@ from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
 from aaltoasr_tpu_torch.frontend.generator import FeatureGenerator
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 from aaltoasr_tpu_torch.ops.gmm import GmmScorer
+from aaltoasr_tpu_torch.parallel.distributed import global_mesh
+from aaltoasr_tpu_torch.parallel.mesh import make_mesh, sharded_train_step
 from aaltoasr_tpu_torch.train.driver import EStepDriver
+from __graft_entry_torch__ import entry as graft_entry
 
 from tests.test_decoder import ARPA_TEXT, make_decode_task, synth_obs
 from tests.test_golden_morph_lattice import MORPHS, TEXTS
@@ -622,12 +625,19 @@ def test_cli_without_device_raises_with_no_gpu(tmp_path, monkeypatch, cli):
     assert not list((tmp_path / "port").rglob("*.lna"))
 
 
+def train_step_on_default_mesh(device="cuda"):
+    """`sharded_train_step` on the mesh a caller builds by default."""
+    return sharded_train_step(make_mesh(device=device), num_trans_slots=1)
+
+
 @pytest.mark.parametrize("cls", [PhoneProbs, DenseBeamSearch, BeamSearch,
                                  Toolbox, FeatureGenerator,
-                                 GmmScorer.from_model, EStepDriver])
+                                 GmmScorer.from_model, EStepDriver,
+                                 make_mesh, global_mesh,
+                                 train_step_on_default_mesh, graft_entry])
 def test_entry_points_default_to_cuda(monkeypatch, cls):
     """The public constructors default to the GPU and, with none, raise
-    before reading anything."""
+    before reading anything or starting a process group."""
     assert inspect.signature(cls).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -637,5 +647,9 @@ def test_entry_points_default_to_cuda(monkeypatch, cls):
             cls(None, None, None)
         elif cls is EStepDriver:
             cls(None, "no-config-read-before-the-device-check")
+        elif cls in (make_mesh, global_mesh, train_step_on_default_mesh,
+                     graft_entry):
+            cls()
         else:               # a config path / a model never read
             cls("no-file-read-before-the-device-check")
+    assert not torch.distributed.is_initialized()
