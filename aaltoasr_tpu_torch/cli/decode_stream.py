@@ -32,8 +32,10 @@ from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.model_io import read_model
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
 from aaltoasr_tpu_torch.ops.gmm import scores_full_cov
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
 
+@device_trace()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="decode_stream")
     p.add_argument("-b", "--base", required=True, help="model base")

@@ -17,6 +17,7 @@ from aaltoasr_tpu_torch.formats.model_io import (
     HmmModel, read_gk, read_mc, read_ph)
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,6 +76,7 @@ def load_model(args) -> HmmModel | str:
     raise SystemExit("Must give either --base or all --gk, --mc and --ph")
 
 
+@device_trace()
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)

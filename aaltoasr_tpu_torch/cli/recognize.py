@@ -29,6 +29,7 @@ from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.lna import read_lna
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.models.phone_probs import PhoneProbs
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
 # --engine auto split point of the reference (exact below, dense above)
 AUTO_ENGINE_NODE_THRESHOLD = 100_000
@@ -87,6 +88,7 @@ def adapt(args) -> str:
     return spkc_path
 
 
+@device_trace()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="recognize")
     p.add_argument("-b", "--am", required=True,

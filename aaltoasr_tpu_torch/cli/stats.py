@@ -19,8 +19,10 @@ from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.model_io import read_model
 from aaltoasr_tpu_torch.formats.recipe import Recipe
 from aaltoasr_tpu_torch.train.driver import EStepDriver
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
 
+@device_trace()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="stats")
     p.add_argument("-b", "--base")

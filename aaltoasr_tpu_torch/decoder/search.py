@@ -73,6 +73,7 @@ from aaltoasr_tpu_torch.decoder.ngram import (
 from aaltoasr_tpu_torch.decoder.wordgraph import WordGraph
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
+from aaltoasr_tpu_torch.utils.profiling import span
 
 LN10 = 2.302585092994046
 NEG_INF = float("-inf")
@@ -797,186 +798,190 @@ class BeamSearch:
         ts = cfg.transition_scale_eff
         ins = cfg.insertion_penalty_eff
         dvc = node.device
-        ri = self._rows_i.rows(node)
-        rf = self._rows_f.rows(node)
-        if self._has_durations:
-            d_ = torch.clamp(dur + 1, 1, cfg.max_dur).float()
-            durb = rf["dur_valid"] * (rf["dur_lncoef"] * torch.log(d_)
-                                      - d_ * rf["dur_invb"]
-                                      + rf["dur_const"])
-        else:
-            durb = torch.zeros_like(am)
-        if self._la_ctx:
-            lev_tok, acc_tok = self._ctx_levels(lmst)
-
-        # ---- 1. in-word expansion (+ branch arcs of the top-O tokens)
-        groups = [self._expand(tok, ri["arc_tgt"], rf["arc_lp"], durb,
-                               True)]
-        groups[0]["am"] = groups[0]["am"] + _take(
-            obs_t, ri["arc_pdf"]).reshape(B, -1)
-        if self._la_ctx:
-            groups[0]["la"] = self._ctx_la(
-                lev_tok, acc_tok, ri["la_lo"], ri["la_hi"],
-                rf["la1"]).reshape(B, -1)
-        if cfg.overflow_tokens:
-            O = min(cfg.overflow_tokens, W)
-            orow = ri["over_map"]
-            is_branch = alive & (orow < self._num_over_rows)
-            rank = torch.where(is_branch, am + ls * lms, NEG_INF)
-            sel_o = top_k(rank, O)                       # [B, O]
-            o_row = orow.gather(1, sel_o)
-            src = tuple(x.gather(1, sel_o) for x in tok)
-            c1b = self._expand(src, t["over_tgt"][o_row],
-                               t["over_lp"][o_row], durb.gather(1, sel_o),
-                               False)
-            c1b["am"] = c1b["am"] + _take(
-                obs_t, t["over_pdf"][o_row]).reshape(B, -1)
-            Ao = t["over_tgt"].shape[1]
-            c1b["alive"] = c1b["alive"] & is_branch.gather(
-                1, sel_o)[..., None].expand(B, O, Ao).reshape(B, -1)
+        with span("exact.expand"):
+            ri = self._rows_i.rows(node)
+            rf = self._rows_f.rows(node)
+            if self._has_durations:
+                d_ = torch.clamp(dur + 1, 1, cfg.max_dur).float()
+                durb = rf["dur_valid"] * (rf["dur_lncoef"] * torch.log(d_)
+                                          - d_ * rf["dur_invb"]
+                                          + rf["dur_const"])
+            else:
+                durb = torch.zeros_like(am)
             if self._la_ctx:
-                lev_o = [tuple(_rows_at(x, sel_o) for x in lev)
-                         for lev in lev_tok]
-                c1b["la"] = self._ctx_la(
-                    lev_o, acc_tok.gather(1, sel_o), t["laov_lo"][o_row],
-                    t["laov_hi"][o_row], t["laov_1"][o_row]).reshape(B, -1)
-            groups.append(c1b)
+                lev_tok, acc_tok = self._ctx_levels(lmst)
+
+            # ---- 1. in-word expansion (+ branch arcs of the top-O tokens)
+            groups = [self._expand(tok, ri["arc_tgt"], rf["arc_lp"], durb,
+                                   True)]
+            groups[0]["am"] = groups[0]["am"] + _take(
+                obs_t, ri["arc_pdf"]).reshape(B, -1)
+            if self._la_ctx:
+                groups[0]["la"] = self._ctx_la(
+                    lev_tok, acc_tok, ri["la_lo"], ri["la_hi"],
+                    rf["la1"]).reshape(B, -1)
+            if cfg.overflow_tokens:
+                O = min(cfg.overflow_tokens, W)
+                orow = ri["over_map"]
+                is_branch = alive & (orow < self._num_over_rows)
+                rank = torch.where(is_branch, am + ls * lms, NEG_INF)
+                sel_o = top_k(rank, O)                       # [B, O]
+                o_row = orow.gather(1, sel_o)
+                src = tuple(x.gather(1, sel_o) for x in tok)
+                c1b = self._expand(src, t["over_tgt"][o_row],
+                                   t["over_lp"][o_row], durb.gather(1, sel_o),
+                                   False)
+                c1b["am"] = c1b["am"] + _take(
+                    obs_t, t["over_pdf"][o_row]).reshape(B, -1)
+                Ao = t["over_tgt"].shape[1]
+                c1b["alive"] = c1b["alive"] & is_branch.gather(
+                    1, sel_o)[..., None].expand(B, O, Ao).reshape(B, -1)
+                if self._la_ctx:
+                    lev_o = [tuple(_rows_at(x, sel_o) for x in lev)
+                             for lev in lev_tok]
+                    c1b["la"] = self._ctx_la(
+                        lev_o, acc_tok.gather(1, sel_o), t["laov_lo"][o_row],
+                        t["laov_hi"][o_row], t["laov_1"][o_row]).reshape(B, -1)
+                groups.append(c1b)
 
         # ---- 2. word ends [W, H] -> (prewalk top-E2) -> LM walk ->
         #         records [E] -> context rows [Er, R]
-        w_word = ri["we_word"]
-        w_exit = rf["we_exit"]
-        w_lmid = ri["we_lmid"]
-        skip = (ri["we_skip"] != 0) | (w_word < 0)
-        w_alive = alive[..., None] & (w_exit > LOG_ZERO / 2)
-        # words missing from the LM are pruned (lm_id < 0)
-        w_alive = w_alive & (skip | (w_lmid >= 0))
-        we_am = am[..., None] + ts * w_exit + durb[..., None]
-        base_lms = lms[..., None] + rf["we_pron"] + torch.where(
-            skip, 0.0, ins)
-        if self._la_bigram:
-            # next lookahead row: the committed word, or the previous
-            # row across silences and words outside the lookahead LM
-            wid = ri["we_law"]
-            w_law = torch.where(wid < self._V_la, wid, law[..., None])
-        else:
-            w_law = law[..., None].expand(B, W, H)
-        WH = W * H
-        E2 = min(cfg.we_prewalk, WH) if cfg.we_prewalk else WH
-        E2 = max(E2, E)
-        per_tok = [rec, lmst] + ([tok[8]] if self._carry_wc else [])
-        if E2 < WH:
-            # rank word ends by a static unigram LM estimate; the exact
-            # walk runs on the top E2
-            pre = we_am + ls * (base_lms
-                                + torch.where(skip, 0.0, rf["we_uni"]))
-            ord2 = top_k(torch.where(w_alive, pre, NEG_INF).reshape(B, WH),
-                         E2)
+        with span("exact.words"):
+            w_word = ri["we_word"]
+            w_exit = rf["we_exit"]
+            w_lmid = ri["we_lmid"]
+            skip = (ri["we_skip"] != 0) | (w_word < 0)
+            w_alive = alive[..., None] & (w_exit > LOG_ZERO / 2)
+            # words missing from the LM are pruned (lm_id < 0)
+            w_alive = w_alive & (skip | (w_lmid >= 0))
+            we_am = am[..., None] + ts * w_exit + durb[..., None]
+            base_lms = lms[..., None] + rf["we_pron"] + torch.where(
+                skip, 0.0, ins)
+            if self._la_bigram:
+                # next lookahead row: the committed word, or the previous
+                # row across silences and words outside the lookahead LM
+                wid = ri["we_law"]
+                w_law = torch.where(wid < self._V_la, wid, law[..., None])
+            else:
+                w_law = law[..., None].expand(B, W, H)
+            WH = W * H
+            E2 = min(cfg.we_prewalk, WH) if cfg.we_prewalk else WH
+            E2 = max(E2, E)
+            per_tok = [rec, lmst] + ([tok[8]] if self._carry_wc else [])
+            if E2 < WH:
+                # rank word ends by a static unigram LM estimate; the exact
+                # walk runs on the top E2
+                pre = we_am + ls * (base_lms
+                                    + torch.where(skip, 0.0, rf["we_uni"]))
+                ord2 = top_k(torch.where(w_alive, pre, NEG_INF).reshape(B, WH),
+                             E2)
 
-            def pick(x):
-                return x.reshape(B, WH).gather(1, ord2)
+                def pick(x):
+                    return x.reshape(B, WH).gather(1, ord2)
 
-            s_tok = [x.gather(1, ord2 // H) for x in per_tok]
-        else:
-            E2 = WH
+                s_tok = [x.gather(1, ord2 // H) for x in per_tok]
+            else:
+                E2 = WH
 
-            def pick(x):
-                return x.reshape(B, WH)
+                def pick(x):
+                    return x.reshape(B, WH)
 
-            s_tok = [pick(x[..., None].expand(B, W, H)) for x in per_tok]
-        s_prev, s_state = s_tok[:2]
-        s_word, s_am, s_base, s_skip = (pick(w_word), pick(we_am),
-                                        pick(base_lms), pick(skip))
-        s_alive, s_pair, s_law = (pick(w_alive), pick(ri["we_pair"]),
-                                  pick(w_law))
-        lm_next, lm_score = self._mw_walk(s_state, s_word, pick(w_lmid))
-        lm_next = torch.where(s_skip, s_state, lm_next)
-        lm_score = torch.where(s_skip, 0.0, lm_score)
-        we_lms2 = s_base + lm_score
-        we_alive2 = s_alive & (lm_score > LOG_ZERO / 2)
-        if self._wb_tid >= 0:
-            # morph mode: prune two subsequent word boundaries, and a
-            # mid-utterance sentence end restarts the LM through <s> +
-            # boundary (TokenPassSearch.cc:869-873, 888-919)
-            prev_wb = t["is_wb_state"][member0_states(self.lm, s_state)]
-            we_alive2 = we_alive2 & ~((s_word == self._wb_tid) & prev_wb)
-            if self._end_tid >= 0:
-                lm_next = torch.where(s_word == self._end_tid,
-                                      self._wb_reset, lm_next)
-        we_total2 = s_am + ls * we_lms2
-        if cfg.word_end_beam:
-            we_best = torch.where(we_alive2, we_total2, NEG_INF).max(
-                dim=1, keepdim=True).values
-            we_alive2 = we_alive2 & (we_total2
-                                     >= we_best - cfg.word_end_beam)
+                s_tok = [pick(x[..., None].expand(B, W, H)) for x in per_tok]
+            s_prev, s_state = s_tok[:2]
+            s_word, s_am, s_base, s_skip = (pick(w_word), pick(we_am),
+                                            pick(base_lms), pick(skip))
+            s_alive, s_pair, s_law = (pick(w_alive), pick(ri["we_pair"]),
+                                      pick(w_law))
+            lm_next, lm_score = self._mw_walk(s_state, s_word, pick(w_lmid))
+            lm_next = torch.where(s_skip, s_state, lm_next)
+            lm_score = torch.where(s_skip, 0.0, lm_score)
+            we_lms2 = s_base + lm_score
+            we_alive2 = s_alive & (lm_score > LOG_ZERO / 2)
+            if self._wb_tid >= 0:
+                # morph mode: prune two subsequent word boundaries, and a
+                # mid-utterance sentence end restarts the LM through <s> +
+                # boundary (TokenPassSearch.cc:869-873, 888-919)
+                prev_wb = t["is_wb_state"][member0_states(self.lm, s_state)]
+                we_alive2 = we_alive2 & ~((s_word == self._wb_tid) & prev_wb)
+                if self._end_tid >= 0:
+                    lm_next = torch.where(s_word == self._end_tid,
+                                          self._wb_reset, lm_next)
+            we_total2 = s_am + ls * we_lms2
+            if cfg.word_end_beam:
+                we_best = torch.where(we_alive2, we_total2, NEG_INF).max(
+                    dim=1, keepdim=True).values
+                we_alive2 = we_alive2 & (we_total2
+                                         >= we_best - cfg.word_end_beam)
 
-        # the E best word ends become this frame's records (a pool
-        # smaller than E leaves the remaining slots dead)
-        k = min(E, E2)
-        order = top_k(torch.where(we_alive2, we_total2, NEG_INF), k)
-        e_alive = we_alive2.gather(1, order)
-        if k < E:
-            order = torch.cat([order, torch.zeros(
-                (B, E - k), dtype=order.dtype, device=dvc)], dim=1)
-            e_alive = torch.cat([e_alive, torch.zeros(
-                (B, E - k), dtype=torch.bool, device=dvc)], dim=1)
-        e_word, e_prev, e_lm, e_am, e_lms, e_pair, e_law = (
-            x.gather(1, order) for x in (s_word, s_prev, lm_next, s_am,
-                                         we_lms2, s_pair, s_law))
-        # silence (word < 0) keeps its previous record pointer; pointers
-        # are step_idx * E + slot
-        is_word = e_alive & (e_word >= 0)
-        rec_word = torch.where(e_alive, e_word, -1)
-        rec_prev = torch.where(is_word, e_prev, -1)
-        rec_am = torch.where(is_word, e_am, 0.0)
-        rec_lms = torch.where(is_word, e_lms, 0.0)
-        slot_ptr = step_idx * E + torch.arange(E, device=dvc)
-        new_rec = torch.where(is_word, slot_ptr, e_prev)
+            # the E best word ends become this frame's records (a pool
+            # smaller than E leaves the remaining slots dead)
+            k = min(E, E2)
+            order = top_k(torch.where(we_alive2, we_total2, NEG_INF), k)
+            e_alive = we_alive2.gather(1, order)
+            if k < E:
+                order = torch.cat([order, torch.zeros(
+                    (B, E - k), dtype=order.dtype, device=dvc)], dim=1)
+                e_alive = torch.cat([e_alive, torch.zeros(
+                    (B, E - k), dtype=torch.bool, device=dvc)], dim=1)
+            e_word, e_prev, e_lm, e_am, e_lms, e_pair, e_law = (
+                x.gather(1, order) for x in (s_word, s_prev, lm_next, s_am,
+                                             we_lms2, s_pair, s_law))
+            # silence (word < 0) keeps its previous record pointer; pointers
+            # are step_idx * E + slot
+            is_word = e_alive & (e_word >= 0)
+            rec_word = torch.where(e_alive, e_word, -1)
+            rec_prev = torch.where(is_word, e_prev, -1)
+            rec_am = torch.where(is_word, e_am, 0.0)
+            rec_lms = torch.where(is_word, e_lms, 0.0)
+            slot_ptr = step_idx * E + torch.arange(E, device=dvc)
+            new_rec = torch.where(is_word, slot_ptr, e_prev)
 
-        # re-entry: the best Er records (records are best-first) through
-        # their context rows
-        Er = min(cfg.reentry_records, E) if cfg.reentry_records else E
-        re_f = [e_alive, e_lm, e_am, e_lms, e_pair, e_law, new_rec]
-        if self._carry_wc:
-            # committed-word count (silences and OOL words do not count)
-            re_f.append(s_tok[2].gather(1, order) + (e_word >= 0).long())
-        re_f = [x[:, :Er] for x in re_f]
-        e_alive, e_lm, e_am, e_lms, e_pair, e_law, re_rec = re_f[:7]
-        if self._la_ctx:
-            # re-entry candidates rank in the post-commit context
-            lev_e, acc_e = self._ctx_levels(e_lm)
-        if self._reentry_topk:
-            groups.extend(self._reentry_compact(
-                obs_t, re_f, lev_e if self._la_ctx else None,
-                acc_e if self._la_ctx else None))
-        else:
-            groups.append(self._reentry_rows(
-                obs_t, re_f, lev_e if self._la_ctx else None,
-                acc_e if self._la_ctx else None))
-        cand = {k2: torch.cat([g[k2] for g in groups], dim=1)
-                for k2 in groups[0]}
+            # re-entry: the best Er records (records are best-first) through
+            # their context rows
+            Er = min(cfg.reentry_records, E) if cfg.reentry_records else E
+            re_f = [e_alive, e_lm, e_am, e_lms, e_pair, e_law, new_rec]
+            if self._carry_wc:
+                # committed-word count (silences and OOL words do not count)
+                re_f.append(s_tok[2].gather(1, order) + (e_word >= 0).long())
+            re_f = [x[:, :Er] for x in re_f]
+            e_alive, e_lm, e_am, e_lms, e_pair, e_law, re_rec = re_f[:7]
+            if self._la_ctx:
+                # re-entry candidates rank in the post-commit context
+                lev_e, acc_e = self._ctx_levels(e_lm)
+            if self._reentry_topk:
+                groups.extend(self._reentry_compact(
+                    obs_t, re_f, lev_e if self._la_ctx else None,
+                    acc_e if self._la_ctx else None))
+            else:
+                groups.append(self._reentry_rows(
+                    obs_t, re_f, lev_e if self._la_ctx else None,
+                    acc_e if self._la_ctx else None))
+            cand = {k2: torch.cat([g[k2] for g in groups], dim=1)
+                    for k2 in groups[0]}
 
         # ---- 3. global beam, pruning extensions, recombination, top-W
-        total = cand["am"] + ls * cand["lms"]
-        if self._la_ctx:
-            total = total + ls * cand["la"]
-        elif self._la_bigram:
-            total = total + ls * t["la2"][cand["law"] * self.tree.num_nodes
-                                          + cand["node"]]
-        elif self._la_on:
-            total = total + ls * t["la"][cand["node"]]
-        c_alive = cand["alive"]
-        total = torch.where(c_alive, total, NEG_INF)
-        best = total.max(dim=1, keepdim=True).values
-        c_alive = c_alive & (total >= best - cfg.beam)
-        c_alive = self._prune_extensions(cand, total, c_alive)
-        sel, new_alive = recombine(cand["node"], cand["lm"], total, c_alive,
-                                   self._num_codes, W, self._fused_key)
-        new_tok = tuple(cand[k2].gather(1, sel) for k2 in
-                        ("node", "lm", "am", "lms", "dur", "rec"))
-        new_tok = new_tok + (new_alive, cand["law"].gather(1, sel))
-        if self._carry_wc:
-            new_tok = new_tok + (cand["wc"].gather(1, sel),)
+        with span("exact.prune"):
+            total = cand["am"] + ls * cand["lms"]
+            if self._la_ctx:
+                total = total + ls * cand["la"]
+            elif self._la_bigram:
+                total = total + ls * t["la2"][cand["law"] * self.tree.num_nodes
+                                              + cand["node"]]
+            elif self._la_on:
+                total = total + ls * t["la"][cand["node"]]
+            c_alive = cand["alive"]
+            total = torch.where(c_alive, total, NEG_INF)
+            best = total.max(dim=1, keepdim=True).values
+            c_alive = c_alive & (total >= best - cfg.beam)
+            c_alive = self._prune_extensions(cand, total, c_alive)
+            sel, new_alive = recombine(cand["node"], cand["lm"], total,
+                                       c_alive, self._num_codes, W,
+                                       self._fused_key)
+            new_tok = tuple(cand[k2].gather(1, sel) for k2 in
+                            ("node", "lm", "am", "lms", "dur", "rec"))
+            new_tok = new_tok + (new_alive, cand["law"].gather(1, sel))
+            if self._carry_wc:
+                new_tok = new_tok + (cand["wc"].gather(1, sel),)
         return new_tok, (rec_word, rec_prev, rec_am, rec_lms)
 
     def _reentry_rows(self, obs_t, re_f, lev_e, acc_e):
@@ -1501,20 +1506,25 @@ class StreamingDecoder:
         self.push_frames(torch.as_tensor(log_probs).reshape(1, -1))
 
     def push_frames(self, log_probs) -> None:
-        """Feed a [K, S] block of state log-probs: K single pushes."""
+        """Feed a [K, S] block of state log-probs: K single pushes (span
+        ``stream.push``; the step's phases are ``exact.expand``,
+        ``exact.words`` and ``exact.prune``)."""
         s = self.search
-        obs = torch.as_tensor(log_probs, dtype=torch.float32,
-                              device=s.device)
-        if obs.ndim == 1:
-            obs = obs[None]
-        for k in range(obs.shape[0]):
-            if self._tokens is None:
-                self._tokens = s._seed_tokens(obs[k:k + 1], self._lm_init)
-            else:
-                i = self._frame - 1
-                self._tokens, rows = s._step(self._tokens, obs[k:k + 1], i)
-                self._store(i, rows)
-            self._frame += 1
+        with span("stream.push", self._frame):
+            obs = torch.as_tensor(log_probs, dtype=torch.float32,
+                                  device=s.device)
+            if obs.ndim == 1:
+                obs = obs[None]
+            for k in range(obs.shape[0]):
+                if self._tokens is None:
+                    self._tokens = s._seed_tokens(obs[k:k + 1],
+                                                  self._lm_init)
+                else:
+                    i = self._frame - 1
+                    self._tokens, rows = s._step(self._tokens,
+                                                 obs[k:k + 1], i)
+                    self._store(i, rows)
+                self._frame += 1
 
     def _store(self, i: int, rows) -> None:
         """Write step i's [1, E] record row, doubling a full buffer."""
@@ -1533,29 +1543,30 @@ class StreamingDecoder:
     def partial(self) -> list:
         """The best token's newest <= ``partial_words`` words (no
         sentence-end finalization), traced back on the device; one
-        fetch."""
-        if self._tokens is None:
-            raise RuntimeError("no frames pushed")
-        s = self.search
-        cfg = s.config
-        am, lms, _dur, rec, alive = self._tokens[2:7]
-        rows = self._frame - 1
-        if rows == 0:
-            return []
-        total = torch.where(alive, am + cfg.lm_scale_eff * lms, NEG_INF)
-        ptr = rec.gather(1, total.argmax(dim=1, keepdim=True))[0, 0]
-        E = cfg.num_records
-        lo = max((rows - self._ring_frames + self._buffer_frames) * E, 0)
-        flat = self._recs.view(-1, 4)
-        words = []
-        for _ in range(self._partial_cap):
-            ok = ptr >= lo
-            row = torch.where(ok, flat[ptr.clamp(min=0)], -1.0)
-            words.append(row[0])
-            ptr = row[1].long()
-        ids = torch.stack(words).cpu().numpy()[::-1]
-        return expand_word_boundaries(
-            [s.tree.vocab[int(i)] for i in ids if i >= 0], cfg)
+        fetch (span ``stream.partial``)."""
+        with span("stream.partial", self._frame):
+            if self._tokens is None:
+                raise RuntimeError("no frames pushed")
+            s = self.search
+            cfg = s.config
+            am, lms, _dur, rec, alive = self._tokens[2:7]
+            rows = self._frame - 1
+            if rows == 0:
+                return []
+            total = torch.where(alive, am + cfg.lm_scale_eff * lms, NEG_INF)
+            ptr = rec.gather(1, total.argmax(dim=1, keepdim=True))[0, 0]
+            E = cfg.num_records
+            lo = max((rows - self._ring_frames + self._buffer_frames) * E, 0)
+            flat = self._recs.view(-1, 4)
+            words = []
+            for _ in range(self._partial_cap):
+                ok = ptr >= lo
+                row = torch.where(ok, flat[ptr.clamp(min=0)], -1.0)
+                words.append(row[0])
+                ptr = row[1].long()
+            ids = torch.stack(words).cpu().numpy()[::-1]
+            return expand_word_boundaries(
+                [s.tree.vocab[int(i)] for i in ids if i >= 0], cfg)
 
     def result(self) -> "DecodeResult":
         """The best hypothesis so far, finalized as at the utterance's

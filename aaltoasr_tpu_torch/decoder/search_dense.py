@@ -50,6 +50,7 @@ from aaltoasr_tpu_torch.decoder.search import (
     walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
+from aaltoasr_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 # C: word-end histories re-entered per frame (the reference's default
@@ -295,150 +296,157 @@ class DenseBeamSearch:
         dvc = total.device
 
         # ---- 1. in-arc relaxation: shifts + grouped irregular arcs
-        cross = total + self._dur_bonus(dur) if self._has_durations else total
-        cand0 = total + t["ts_self"]
-        cand1 = _shift(cross, 1, LOG_ZERO) + t["ts_prev"]
-        cand2 = _shift(cross, 2, LOG_ZERO) + t["ts_skip"]
-        gsrc = t["grp_src"]                               # [Mi, F]
-        g_best, fwin = (cross[:, gsrc] + t["ts_grp"]).max(dim=-1)
-        src_win = gsrc[torch.arange(gsrc.shape[0], device=dvc)[None, :],
-                       fwin]                              # [B, Mi]
-        inv_g = t["grp_inv"]
+        with span("dense.arcs"):
+            cross = (total + self._dur_bonus(dur) if self._has_durations
+                     else total)
+            cand0 = total + t["ts_self"]
+            cand1 = _shift(cross, 1, LOG_ZERO) + t["ts_prev"]
+            cand2 = _shift(cross, 2, LOG_ZERO) + t["ts_skip"]
+            gsrc = t["grp_src"]                               # [Mi, F]
+            g_best, fwin = (cross[:, gsrc] + t["ts_grp"]).max(dim=-1)
+            src_win = gsrc[torch.arange(gsrc.shape[0], device=dvc)[None, :],
+                           fwin]                              # [B, Mi]
+            inv_g = t["grp_inv"]
 
-        def expand(vals, fill):
-            """compact [B, Mi] -> [B, N] (nodes without irregular arcs
-            get `fill`)"""
-            pad = torch.full((B, 1), fill, dtype=vals.dtype, device=dvc)
-            return torch.cat([vals, pad], dim=1)[:, inv_g]
+            def expand(vals, fill):
+                """compact [B, Mi] -> [B, N] (nodes without irregular arcs
+                get `fill`)"""
+                pad = torch.full((B, 1), fill, dtype=vals.dtype, device=dvc)
+                return torch.cat([vals, pad], dim=1)[:, inv_g]
 
-        best3, choice = torch.stack([cand0, cand1, cand2]).max(dim=0)
-        irr_sc = expand(g_best, LOG_ZERO)
-        take_irr = irr_sc > best3
-        best = torch.maximum(best3, irr_sc)
+            best3, choice = torch.stack([cand0, cand1, cand2]).max(dim=0)
+            irr_sc = expand(g_best, LOG_ZERO)
+            take_irr = irr_sc > best3
+            best = torch.maximum(best3, irr_sc)
 
-        def pick(x, fill):
-            sel = torch.where(choice == 0, x, torch.where(
-                choice == 1, _shift(x, 1, fill), _shift(x, 2, fill)))
-            return torch.where(take_irr,
-                               expand(x.gather(1, src_win), fill), sel)
+            def pick(x, fill):
+                sel = torch.where(choice == 0, x, torch.where(
+                    choice == 1, _shift(x, 1, fill), _shift(x, 2, fill)))
+                return torch.where(take_irr,
+                                   expand(x.gather(1, src_win), fill), sel)
 
-        new_lms = pick(lms, 0.0)
-        new_lm = pick(lm, 0)
-        new_rec = pick(rec, -1)
-        new_bo = pick(bo, 0.0)
-        new_dur = torch.where(take_irr | (choice != 0),
-                              torch.zeros_like(dur), dur + 1)
-        new_alive = best > LOG_ZERO / 2
+            new_lms = pick(lms, 0.0)
+            new_lm = pick(lm, 0)
+            new_rec = pick(rec, -1)
+            new_bo = pick(bo, 0.0)
+            new_dur = torch.where(take_irr | (choice != 0),
+                                  torch.zeros_like(dur), dur + 1)
+            new_alive = best > LOG_ZERO / 2
 
         # ---- 2. word ends: cheap static rank of all slots, exact LM
         # walk on the top E
-        wn = t["we_node"]                                 # [Nw]
-        Nw = wn.shape[0]
-        skip = t["we_skip_any"]
-        tot_wn = total[:, wn]
-        lms_wn = lms[:, wn]
-        we_durb = self._dur_bonus(dur[:, wn], "we_")
-        we_am = fma(tot_wn, lms_wn, -a_lm) + t["ts_exit"] + we_durb
-        base_lms = lms_wn + t["we_pron"]
-        appr_lm = torch.where(skip, 0.0, bo[:, wn] + t["we_uni"] + ins)
-        slot_ok = ((tot_wn > LOG_ZERO / 2) & (t["we_exit"] > LOG_ZERO / 2)
-                   & (skip | (t["we_lmid"] >= 0)))
-        rank0 = torch.where(
-            slot_ok,
-            fma(tot_wn + t["ts_exit"] + we_durb, t["we_pron"] + appr_lm, a_lm),
-            NEG_INF)
-        k = min(E, Nw)
-        cand = top_k(rank0, k)                            # [B, k]
-        c_ok = slot_ok.gather(1, cand)
-        if k < E:
-            zpad = torch.zeros((B, E - k), dtype=cand.dtype, device=dvc)
-            cand = torch.cat([cand, zpad], dim=1)
-            c_ok = torch.cat([c_ok, zpad.bool()], dim=1)
-        c_word = t["we_word"][cand]
-        c_skip = skip[cand]
-        c_state = lm[:, wn].gather(1, cand)
-        if self._mw_cmax == 1:
-            lm_next, lm_score = self._walk(
-                c_state, t["we_lmid"][cand].clamp(min=0))
-        else:
-            lm_next, lm_score = walk_components(
-                self._walk, c_state, t["mw_comp"][c_word.clamp(min=0)])
-        lm_next = torch.where(c_skip, c_state, lm_next)
-        lm_score = torch.where(c_skip, 0.0, lm_score)
-        c_am = we_am.gather(1, cand)
-        c_lms = (base_lms.gather(1, cand) + lm_score
-                 + torch.where(c_skip, 0.0, ins))
-        c_alive = c_ok & (lm_score > LOG_ZERO / 2)
-        if self._wb_tid >= 0:
-            prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
-            c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
-            if self._end_tid >= 0:
-                lm_next = torch.where(c_word == self._end_tid,
-                                      self._wb_reset, lm_next)
-        c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
+        with span("dense.words"):
+            wn = t["we_node"]                                 # [Nw]
+            Nw = wn.shape[0]
+            skip = t["we_skip_any"]
+            tot_wn = total[:, wn]
+            lms_wn = lms[:, wn]
+            we_durb = self._dur_bonus(dur[:, wn], "we_")
+            we_am = fma(tot_wn, lms_wn, -a_lm) + t["ts_exit"] + we_durb
+            base_lms = lms_wn + t["we_pron"]
+            appr_lm = torch.where(skip, 0.0, bo[:, wn] + t["we_uni"] + ins)
+            slot_ok = ((tot_wn > LOG_ZERO / 2) & (t["we_exit"] > LOG_ZERO / 2)
+                       & (skip | (t["we_lmid"] >= 0)))
+            rank0 = torch.where(
+                slot_ok,
+                fma(tot_wn + t["ts_exit"] + we_durb, t["we_pron"] + appr_lm,
+                    a_lm),
+                NEG_INF)
+            k = min(E, Nw)
+            cand = top_k(rank0, k)                            # [B, k]
+            c_ok = slot_ok.gather(1, cand)
+            if k < E:
+                zpad = torch.zeros((B, E - k), dtype=cand.dtype, device=dvc)
+                cand = torch.cat([cand, zpad], dim=1)
+                c_ok = torch.cat([c_ok, zpad.bool()], dim=1)
+            c_word = t["we_word"][cand]
+            c_skip = skip[cand]
+            c_state = lm[:, wn].gather(1, cand)
+            if self._mw_cmax == 1:
+                lm_next, lm_score = self._walk(
+                    c_state, t["we_lmid"][cand].clamp(min=0))
+            else:
+                lm_next, lm_score = walk_components(
+                    self._walk, c_state, t["mw_comp"][c_word.clamp(min=0)])
+            lm_next = torch.where(c_skip, c_state, lm_next)
+            lm_score = torch.where(c_skip, 0.0, lm_score)
+            c_am = we_am.gather(1, cand)
+            c_lms = (base_lms.gather(1, cand) + lm_score
+                     + torch.where(c_skip, 0.0, ins))
+            c_alive = c_ok & (lm_score > LOG_ZERO / 2)
+            if self._wb_tid >= 0:
+                prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
+                c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
+                if self._end_tid >= 0:
+                    lm_next = torch.where(c_word == self._end_tid,
+                                          self._wb_reset, lm_next)
+            c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
 
-        # records: the E candidates with exact scores
-        c_prev = rec[:, wn].gather(1, cand)
-        is_word = c_alive & (c_word >= 0)
-        rec_word = torch.where(c_alive, c_word, -1)
-        rec_prev = torch.where(is_word, c_prev, -1)
-        recs = (rec_word, rec_prev)
-        if lattice:
-            recs += (torch.where(is_word, c_am, 0.0),
-                     torch.where(is_word, c_lms, 0.0))
-        slot_ptr = step_idx * E + torch.arange(E, device=dvc)
-        e_rec = torch.where(is_word, slot_ptr, c_prev)
+            # records: the E candidates with exact scores
+            c_prev = rec[:, wn].gather(1, cand)
+            is_word = c_alive & (c_word >= 0)
+            rec_word = torch.where(c_alive, c_word, -1)
+            rec_prev = torch.where(is_word, c_prev, -1)
+            recs = (rec_word, rec_prev)
+            if lattice:
+                recs += (torch.where(is_word, c_am, 0.0),
+                         torch.where(is_word, c_lms, 0.0))
+            slot_ptr = step_idx * E + torch.arange(E, device=dvc)
+            e_rec = torch.where(is_word, slot_ptr, c_prev)
 
         # ---- 3. re-entry: the top C through their context-pair rows
-        top_c = top_k(c_total, C)                         # [B, C]
-        r_lms = c_lms.gather(1, top_c)
-        r_lm = lm_next.gather(1, top_c)
-        r_rec = e_rec.gather(1, top_c)
-        r_alive = c_alive.gather(1, top_c)
-        r_bo = self._bo_est(r_lm)
-        r_pair = t["we_pair"][cand.gather(1, top_c)]
-        NR = self._NR
-        maskC = t["left_mem"][r_pair // NR] & t["first_mem"][r_pair % NR]
-        r_total = torch.where(
-            r_alive, torch.clamp(c_total.gather(1, top_c), min=LOG_ZERO),
-            LOG_ZERO)
-        enter = torch.where(maskC & r_alive[..., None], r_total[..., None],
-                            LOG_ZERO)                     # [B, C, M]
-        e_sc, winner = enter.max(dim=1)                   # [B, M]
-        e_valid = e_sc > LOG_ZERO / 2
+        with span("dense.reentry"):
+            top_c = top_k(c_total, C)                         # [B, C]
+            r_lms = c_lms.gather(1, top_c)
+            r_lm = lm_next.gather(1, top_c)
+            r_rec = e_rec.gather(1, top_c)
+            r_alive = c_alive.gather(1, top_c)
+            r_bo = self._bo_est(r_lm)
+            r_pair = t["we_pair"][cand.gather(1, top_c)]
+            NR = self._NR
+            maskC = t["left_mem"][r_pair // NR] & t["first_mem"][r_pair % NR]
+            r_total = torch.where(
+                r_alive, torch.clamp(c_total.gather(1, top_c), min=LOG_ZERO),
+                LOG_ZERO)
+            enter = torch.where(maskC & r_alive[..., None], r_total[..., None],
+                                LOG_ZERO)                     # [B, C, M]
+            e_sc, winner = enter.max(dim=1)                   # [B, M]
+            e_valid = e_sc > LOG_ZERO / 2
 
-        def c_pay(vals):
-            """the winning candidate's payload per entry node, plus the
-            pad row of nodes outside the entry space"""
-            out = torch.where(e_valid, vals.gather(1, winner),
-                              torch.zeros((), dtype=vals.dtype, device=dvc))
-            return torch.cat([out, torch.zeros((B, 1), dtype=vals.dtype,
-                                               device=dvc)], dim=1)
+            def c_pay(vals):
+                """the winning candidate's payload per entry node, plus the
+                pad row of nodes outside the entry space"""
+                out = torch.where(
+                    e_valid, vals.gather(1, winner),
+                    torch.zeros((), dtype=vals.dtype, device=dvc))
+                return torch.cat([out, torch.zeros((B, 1), dtype=vals.dtype,
+                                                   device=dvc)], dim=1)
 
-        inv = t["entry_inv"]
-        e_sc1 = torch.cat([e_sc, torch.full((B, 1), LOG_ZERO, device=dvc)],
-                          dim=1)
-        cur = torch.where(new_alive, best, LOG_ZERO)
-        sc_full = e_sc1[:, inv]
-        take_tgt = sc_full > cur                          # [B, N]
-        new_lms = torch.where(take_tgt, c_pay(r_lms)[:, inv], new_lms)
-        new_lm = torch.where(take_tgt, c_pay(r_lm)[:, inv], new_lm)
-        new_dur = torch.where(take_tgt, torch.zeros_like(new_dur), new_dur)
-        new_rec = torch.where(take_tgt, c_pay(r_rec)[:, inv], new_rec)
-        new_bo = torch.where(take_tgt, c_pay(r_bo)[:, inv], new_bo)
-        new_alive = new_alive | take_tgt
+            inv = t["entry_inv"]
+            e_sc1 = torch.cat([e_sc, torch.full((B, 1), LOG_ZERO, device=dvc)],
+                              dim=1)
+            cur = torch.where(new_alive, best, LOG_ZERO)
+            sc_full = e_sc1[:, inv]
+            take_tgt = sc_full > cur                          # [B, N]
+            new_lms = torch.where(take_tgt, c_pay(r_lms)[:, inv], new_lms)
+            new_lm = torch.where(take_tgt, c_pay(r_lm)[:, inv], new_lm)
+            new_dur = torch.where(take_tgt, torch.zeros_like(new_dur), new_dur)
+            new_rec = torch.where(take_tgt, c_pay(r_rec)[:, inv], new_rec)
+            new_bo = torch.where(take_tgt, c_pay(r_bo)[:, inv], new_bo)
+            new_alive = new_alive | take_tgt
 
         # ---- 4. observation + beam
-        new_total = torch.where(take_tgt, sc_full, cur) + obs_t
-        mx = new_total.max(dim=1, keepdim=True).values
-        new_alive = new_alive & (new_total >= mx - cfg.beam)
-        new_total = torch.where(new_alive, new_total, LOG_ZERO)
-        # per-frame best snapshot (rec, total, am, lms)
-        bestn = new_total.argmax(dim=1, keepdim=True)
-        best_lms = new_lms.gather(1, bestn)[:, 0]
-        mx = mx[:, 0]
-        fin = (new_rec.gather(1, bestn)[:, 0], mx, fma(mx, best_lms, -a_lm),
-               best_lms)
+        with span("dense.beam"):
+            new_total = torch.where(take_tgt, sc_full, cur) + obs_t
+            mx = new_total.max(dim=1, keepdim=True).values
+            new_alive = new_alive & (new_total >= mx - cfg.beam)
+            new_total = torch.where(new_alive, new_total, LOG_ZERO)
+            # per-frame best snapshot (rec, total, am, lms)
+            bestn = new_total.argmax(dim=1, keepdim=True)
+            best_lms = new_lms.gather(1, bestn)[:, 0]
+            mx = mx[:, 0]
+            fin = (new_rec.gather(1, bestn)[:, 0], mx,
+                   fma(mx, best_lms, -a_lm), best_lms)
         return ((new_total, new_lms, new_lm, new_dur, new_rec, new_bo,
                  new_alive), recs, fin)
 
@@ -543,17 +551,19 @@ class DenseBeamSearch:
         fills = (-1, -1, 0.0, 0.0)
         recs = [[] for _ in range(4 if lattice else 2)]
         for i in range(T - 1):
-            v = (i + 1) < n_frames                       # [B]
-            new_state, rows, new_fin = self._step(
-                state, obs[:, i + 1][:, t["pdf"]], i, lattice)
-            if snap:
-                fin = tuple(torch.where(v, n, o) for n, o in zip(new_fin, fin))
-                state = new_state
-            else:
-                state = tuple(torch.where(v[:, None], n, o)
-                              for n, o in zip(new_state, state))
-            for lst, r, f in zip(recs, rows, fills):
-                lst.append(torch.where(v[:, None], r, f))
+            with span("dense.step", i):
+                v = (i + 1) < n_frames                       # [B]
+                new_state, rows, new_fin = self._step(
+                    state, obs[:, i + 1][:, t["pdf"]], i, lattice)
+                if snap:
+                    fin = tuple(torch.where(v, n, o)
+                                for n, o in zip(new_fin, fin))
+                    state = new_state
+                else:
+                    state = tuple(torch.where(v[:, None], n, o)
+                                  for n, o in zip(new_state, state))
+                for lst, r, f in zip(recs, rows, fills):
+                    lst.append(torch.where(v[:, None], r, f))
         if snap:
             finals = fin + (torch.full((B,), -1, dtype=torch.int64,
                                        device=dvc),)
@@ -586,36 +596,47 @@ class DenseBeamSearch:
     def decode_batch(self, obs, n_frames, sentence_start="<s>",
                      lattice=True) -> list:
         """[B, T, S] state log-probs + [B] frame counts -> B results;
-        with ``lattice`` each carries its records (`word_graph`)."""
-        obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
-        n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,
-                            device=self.device)
-        finals, rec_ints, rec_floats = self._decode(
-            obs, n, initial_code(self.lm, sentence_start), lattice)
-        finals = [f.cpu().numpy() for f in finals]
-        recs = rec_ints.cpu().numpy()
-        out = []
-        if lattice:
-            # bfloat16 records come back to float32 on the host
-            rec_f = rec_floats.cpu().float().numpy()
-            for b in range(obs.shape[0]):
-                out.append(DecodeResult(
-                    search=self, final_ptr=int(finals[0][b]),
-                    log_prob=float(finals[1][b]),
-                    final_am=float(finals[2][b]),
-                    final_lms=float(finals[3][b]), rec_words=recs[0, b],
-                    rec_prevs=recs[1, b], rec_ams=rec_f[0, b],
-                    rec_lmss=rec_f[1, b], final_word=int(finals[4][b])))
+        with ``lattice`` each carries its records (`word_graph`).
+
+        Spans (`utils/profiling.py`): ``dense.decode`` the call;
+        ``dense.step`` each frame (its self time the state freeze and
+        the record selection), with one child per phase of `_step`
+        (``dense.arcs``, ``dense.words``, ``dense.reentry``,
+        ``dense.beam``); ``dense.fetch`` (the host waits for finals and
+        records) and ``dense.traceback``."""
+        with span("dense.decode"):
+            obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
+            n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,
+                                device=self.device)
+            finals, rec_ints, rec_floats = self._decode(
+                obs, n, initial_code(self.lm, sentence_start), lattice)
+            with span("dense.fetch"):
+                finals = [f.cpu().numpy() for f in finals]
+                recs = rec_ints.cpu().numpy()
+                # bfloat16 records come back to float32 on the host
+                rec_f = rec_floats.cpu().float().numpy() if lattice else None
+            out = []
+            if lattice:
+                for b in range(obs.shape[0]):
+                    out.append(DecodeResult(
+                        search=self, final_ptr=int(finals[0][b]),
+                        log_prob=float(finals[1][b]),
+                        final_am=float(finals[2][b]),
+                        final_lms=float(finals[3][b]), rec_words=recs[0, b],
+                        rec_prevs=recs[1, b], rec_ams=rec_f[0, b],
+                        rec_lmss=rec_f[1, b], final_word=int(finals[4][b])))
+                return out
+            wmax = min(self._traceback_cap, obs.shape[1])
+            with span("dense.traceback"):
+                for b in range(obs.shape[0]):
+                    ids = traceback(recs[0, b], recs[1, b], int(finals[0][b]),
+                                    int(finals[4][b]), wmax)
+                    out.append(DecodeResult(
+                        search=self, final_ptr=int(finals[0][b]),
+                        log_prob=float(finals[1][b]),
+                        final_am=float(finals[2][b]),
+                        final_lms=float(finals[3][b]), rec_words=None,
+                        rec_prevs=None, rec_ams=None, rec_lmss=None,
+                        words=expand_word_boundaries(
+                            [self.tree.vocab[i] for i in ids], self.config)))
             return out
-        wmax = min(self._traceback_cap, obs.shape[1])
-        for b in range(obs.shape[0]):
-            ids = traceback(recs[0, b], recs[1, b], int(finals[0][b]),
-                            int(finals[4][b]), wmax)
-            out.append(DecodeResult(
-                search=self, final_ptr=int(finals[0][b]),
-                log_prob=float(finals[1][b]), final_am=float(finals[2][b]),
-                final_lms=float(finals[3][b]), rec_words=None,
-                rec_prevs=None, rec_ams=None, rec_lmss=None,
-                words=expand_word_boundaries(
-                    [self.tree.vocab[i] for i in ids], self.config)))
-        return out

@@ -23,6 +23,11 @@ power} subgraph runs as one hand-written kernel
 math.  Speaker-dependent parameters (VTLN warp, feature transforms,
 normalization) are tensors on the device that `set_parameters`
 replaces; nothing else is rebuilt per speaker.
+
+The entry points are spans ``frontend.features`` of the program's
+tracer (`utils/profiling.py`), and the counter
+``frontend.upload_bytes`` counts the bytes of samples they take from
+host memory (inputs already on the generator's device count 0).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
 from aaltoasr_tpu_torch.frontend import modules as M
+from aaltoasr_tpu_torch.utils import profiling
 
 
 def patches_count(num_samples: int, window_width: int, adv: float) -> int:
@@ -273,8 +279,14 @@ class FeatureGenerator:
 
     # -- public entry points ---------------------------------------------
     def _samples(self, samples) -> torch.Tensor:
-        return torch.as_tensor(samples, dtype=torch.float32,
-                               device=self.device)
+        on_device = (isinstance(samples, torch.Tensor)
+                     and samples.device.type == self.device.type)
+        out = torch.as_tensor(samples, dtype=torch.float32,
+                              device=self.device)
+        if not on_device:
+            profiling.count("frontend.upload_bytes",
+                            out.numel() * out.element_size())
+        return out
 
     def features(self, samples, num_samples: int | None = None):
         """[S] samples -> [T, dim] features for one utterance.
@@ -282,23 +294,25 @@ class FeatureGenerator:
         `samples` are raw int16-valued floats (the reference reads via
         sf_read_short without scaling, `aku/AudioReader.cc:197`).
         """
-        samples = self._samples(samples)
-        if num_samples is None:
-            num_samples = samples.shape[0]
-        T = self.num_frames(num_samples)
-        T_pad = self.num_frames(samples.shape[0])
-        n = torch.full((1,), T, dtype=torch.int64, device=self.device)
-        return self._run(samples[None], n, T_pad)[0, :T]
+        with profiling.span("frontend.features"):
+            samples = self._samples(samples)
+            if num_samples is None:
+                num_samples = samples.shape[0]
+            T = self.num_frames(num_samples)
+            T_pad = self.num_frames(samples.shape[0])
+            n = torch.full((1,), T, dtype=torch.int64, device=self.device)
+            return self._run(samples[None], n, T_pad)[0, :T]
 
     def features_range(self, samples, start_frame: int, end_frame: int):
         """Features for frames [start_frame, end_frame) with border
         copies outside the valid range (feacat --start-frame/--end-frame
         semantics incl. negative starts, `aku/feacat.cc:50-120`)."""
-        samples = self._samples(samples)
-        n = torch.full((1,), self.num_frames(samples.shape[0]),
-                       dtype=torch.int64, device=self.device)
-        return self._run(samples[None], n, int(end_frame - start_frame),
-                         start=int(start_frame))[0]
+        with profiling.span("frontend.features"):
+            samples = self._samples(samples)
+            n = torch.full((1,), self.num_frames(samples.shape[0]),
+                           dtype=torch.int64, device=self.device)
+            return self._run(samples[None], n, int(end_frame - start_frame),
+                             start=int(start_frame))[0]
 
     def features_stacked(self, samples, module: str, params: dict,
                          num_frames: int | None = None) -> torch.Tensor:
@@ -310,14 +324,15 @@ class FeatureGenerator:
         modules keep the generator's, and the generator is left as it
         was.  ``num_frames`` (default: all) sets where the border copies
         start."""
-        samples = self._samples(samples)
-        T_pad = self.num_frames(samples.shape[0])
-        B = next(iter(params.values())).shape[0]
-        n = torch.full((B,), T_pad if num_frames is None else num_frames,
-                       dtype=torch.int64, device=self.device)
-        return self._run(samples[None].expand(B, -1), n, T_pad,
-                         params={**self._dev_params,
-                                 module: self._upload(params)})
+        with profiling.span("frontend.features"):
+            samples = self._samples(samples)
+            T_pad = self.num_frames(samples.shape[0])
+            B = next(iter(params.values())).shape[0]
+            n = torch.full((B,), T_pad if num_frames is None else num_frames,
+                           dtype=torch.int64, device=self.device)
+            return self._run(samples[None].expand(B, -1), n, T_pad,
+                             params={**self._dev_params,
+                                     module: self._upload(params)})
 
     def features_batch(self, samples, num_samples):
         """[B, S] padded samples + [B] lengths -> [B, T_pad, dim].
@@ -325,11 +340,12 @@ class FeatureGenerator:
         Rows beyond each utterance's frame count hold border copies of
         its last frame; mask with `num_frames(num_samples[i])`.
         """
-        samples = self._samples(samples)
-        n = torch.as_tensor(
-            [self.num_frames(int(k)) for k in np.asarray(num_samples)],
-            dtype=torch.int64, device=self.device)
-        return self._run(samples, n, self.num_frames(samples.shape[1]))
+        with profiling.span("frontend.features"):
+            samples = self._samples(samples)
+            n = torch.as_tensor(
+                [self.num_frames(int(k)) for k in np.asarray(num_samples)],
+                dtype=torch.int64, device=self.device)
+            return self._run(samples, n, self.num_frames(samples.shape[1]))
 
     # -- diagnostics ------------------------------------------------------
     def print_dot_graph(self, out) -> None:

@@ -23,6 +23,7 @@ from aaltoasr_tpu_torch.ops.cuda_build import (
     SMEM_LIMIT, check, load_library)
 from aaltoasr_tpu_torch.ops.tf32 import (  # noqa: F401  (names kept here)
     derived, device_index, num_sms, round_tf32, split_tf32)
+from aaltoasr_tpu_torch.utils import profiling
 
 SOURCE = "mfcc_core.cu"
 CHUNK = 96        # basis columns per chunk (48 bins), as in the source
@@ -179,8 +180,5 @@ def mfcc_core(frames, dft_basis, mel_w, dct_m, magnitude=True, root=False,
         M, C, mel_tab.shape[1], int(magnitude), int(root), int(with_power),
         tile, torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "mfcc_core")
-    mfcc_core.launches += 1
+    profiling.count("k2.launches")
     return cep, pw
-
-
-mfcc_core.launches = 0

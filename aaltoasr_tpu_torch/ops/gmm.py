@@ -35,6 +35,7 @@ from aaltoasr_tpu_torch.device import ieee_float32, resolve_device
 from aaltoasr_tpu_torch.formats.model_io import HmmModel
 from aaltoasr_tpu_torch.ops.logsemiring import (
     LOG_ZERO, SAFE_LOG_FLOOR, logsumexp)
+from aaltoasr_tpu_torch.utils import profiling
 
 
 _PAD_GAUSSIANS = 128    # Gaussian-axis padding of the score matrix
@@ -274,8 +275,9 @@ class GmmScorer:
     def lna_log_probs(self, features: torch.Tensor) -> torch.Tensor:
         """[..., T, D] -> [..., T, S] LNA-normalized log-probs
         (PPToolbox::generate_to_fd, `aku/PhoneProbsToolbox.cc:93-105`)."""
-        ll = self.state_log_likelihoods(features)[..., :self.num_states]
-        return lna_normalize(ll)
+        with profiling.span("scoring.lna"):
+            ll = self.state_log_likelihoods(features)[..., :self.num_states]
+            return lna_normalize(ll)
 
 
 def scores_full_cov(model: HmmModel) -> bool:

@@ -37,6 +37,7 @@ from aaltoasr_tpu_torch.ops.gmm import GmmScorer, _round_up, lna_normalize
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
 from aaltoasr_tpu_torch.ops.tf32 import (
     derived, device_index, num_sms, split_tf32)
+from aaltoasr_tpu_torch.utils import profiling
 
 SOURCE = "gmm_state_ll.cu"
 TILE_S = 512            # state padding of the slabs
@@ -186,11 +187,8 @@ def gmm_state_ll(features: torch.Tensor, we: torch.Tensor,
         T, dim, K, slab_depth(dim), Spp, tile,
         torch.cuda.current_stream(features.device).cuda_stream)
     check(lib, err, "gmm_state_ll")
-    gmm_state_ll.launches += 1
+    profiling.count("k1.launches")
     return out
-
-
-gmm_state_ll.launches = 0
 
 
 @dataclass(frozen=True)
@@ -250,5 +248,6 @@ class FusedGmmScorer:
     def lna_log_probs(self, features: torch.Tensor) -> torch.Tensor:
         """[..., T, D] -> [..., T, S] LNA-normalized log-probs
         (`aku/PhoneProbsToolbox.cc:93-105` semantics)."""
-        ll = self.state_log_likelihoods(features)[..., :self.num_states]
-        return lna_normalize(ll)
+        with profiling.span("scoring.lna"):
+            ll = self.state_log_likelihoods(features)[..., :self.num_states]
+            return lna_normalize(ll)

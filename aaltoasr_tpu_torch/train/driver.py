@@ -38,6 +38,7 @@ from aaltoasr_tpu_torch.train import mpe as mpe_mod
 from aaltoasr_tpu_torch.train.accumulators import (
     HmmStats, ML_BUF, MMI_BUF, MPE_DEN_BUF, MPE_NUM_BUF, PDF_ML_FULL_STATS,
     PDF_ML_STATS, PDF_MMI_STATS, PDF_MPE_DEN_STATS, PDF_MPE_NUM_STATS)
+from aaltoasr_tpu_torch.utils.profiling import count, span
 
 
 def fetch(dstats: dict) -> dict:
@@ -165,13 +166,17 @@ class EStepDriver:
         return out
 
     def _run_batch(self, feats, T, graphs, full_stats: bool = False,
-                   arc_feacount: bool = False):
+                   arc_feacount: bool = False, unit=None):
         """Batched E-step on the device: feats [B, T_pad, D], T [B] frame
-        counts, graphs stacked on the device -> fetched numpy stats."""
-        n = torch.as_tensor(np.asarray(T, np.int64), device=self.device)
-        return fetch(estep.chain_stats(
-            self.scorer, feats, graphs, n, self.table.num_slots, self.mode,
-            full_stats=full_stats, arc_feacount=arc_feacount))
+        counts, graphs stacked on the device -> fetched numpy stats
+        (spans ``estep.batch`` and ``estep.fetch``)."""
+        with span("estep.batch", unit):
+            n = torch.as_tensor(np.asarray(T, np.int64), device=self.device)
+            dstats = estep.chain_stats(
+                self.scorer, feats, graphs, n, self.table.num_slots,
+                self.mode, full_stats=full_stats, arc_feacount=arc_feacount)
+        with span("estep.fetch", unit):
+            return fetch(dstats)
 
     def _run_graph(self, feats, T, graph, arc_feacount: bool = False):
         """One utterance (padded features on the device, a host graph)
@@ -279,39 +284,65 @@ class EStepDriver:
                            info: int = 0) -> HmmStats:
         """Batched ML E-step: utterances bucketed by padded shape
         (T_pad, P_pad, F), each bucket run in batches of ``batch_size``
-        (one device pass per batch)."""
-        total = HmmStats.zeros(self.model, self.table)
-        buckets: dict = {}
-        for rinfo in recipe:
-            if info > 0:
-                print(f"Loading: {rinfo.audio_path}", file=sys.stderr)
-            samples, _ = read_audio(rinfo.audio_path, self.fg.sample_rate)
-            feats, T = self._padded_features(samples)
-            graph = self._graph_from_chain(
-                [e.label for e in read_phn(rinfo.transcript_path)])
-            key = (int(feats.shape[0]), int(graph["pdf"].shape[0]),
-                   int(graph["in_src"].shape[1]))
-            buckets.setdefault(key, []).append(
-                (feats, graph, T, rinfo.audio_path))
+        (one device pass per batch).
 
-        for items in buckets.values():
-            graphs = estep.stack_graphs([c[1] for c in items], self.device)
-            for i in range(0, len(items), batch_size):
-                chunk = items[i:i + batch_size]
-                out = self._run_batch(
-                    torch.stack([c[0] for c in chunk]),
-                    [c[2] for c in chunk],
-                    {k: v[i:i + batch_size] for k, v in graphs.items()})
-                for b, c in enumerate(chunk):
-                    if _failed(float(out["log_likelihood"][b])):
-                        print(f"Warning: no valid path for {c[3]}; "
-                              "skipping", file=sys.stderr)
-                        self.failed_utterances.append(c[3])
-                        continue
-                    total.add(device_stats_to_hmm_stats(
-                        self.model, self.table,
-                        {k: v[b] for k, v in out.items()}))
-        return total
+        Spans (`utils/profiling.py`): ``estep.shard`` the call;
+        ``estep.read``, ``estep.features`` and ``estep.compile`` per
+        utterance; ``estep.upload`` per bucket (its graphs) and per batch
+        (its stacked features); per batch ``estep.batch`` (the
+        frame loops issued), ``estep.fetch`` (the host waits for the
+        statistics) and ``estep.accumulate`` (into the host `HmmStats`).
+        Counters ``estep.frames`` and ``estep.padded_frames``: each
+        batch's valid frames and B x T_pad."""
+        with span("estep.shard"):
+            total = HmmStats.zeros(self.model, self.table)
+            buckets: dict = {}
+            for u, rinfo in enumerate(recipe):
+                if info > 0:
+                    print(f"Loading: {rinfo.audio_path}", file=sys.stderr)
+                with span("estep.read", u):
+                    samples, _ = read_audio(rinfo.audio_path,
+                                            self.fg.sample_rate)
+                    labels = [e.label
+                              for e in read_phn(rinfo.transcript_path)]
+                with span("estep.features", u):
+                    feats, T = self._padded_features(samples)
+                with span("estep.compile", u):
+                    graph = self._graph_from_chain(labels)
+                key = (int(feats.shape[0]), int(graph["pdf"].shape[0]),
+                       int(graph["in_src"].shape[1]))
+                buckets.setdefault(key, []).append(
+                    (feats, graph, T, rinfo.audio_path))
+
+            j = 0
+            for items in buckets.values():
+                with span("estep.upload", j):
+                    graphs = estep.stack_graphs([c[1] for c in items],
+                                                self.device)
+                for i in range(0, len(items), batch_size):
+                    chunk = items[i:i + batch_size]
+                    with span("estep.upload", j):
+                        feats = torch.stack([c[0] for c in chunk])
+                    n_frames = [c[2] for c in chunk]
+                    count("estep.frames", sum(n_frames))
+                    count("estep.padded_frames",
+                          feats.shape[0] * feats.shape[1])
+                    out = self._run_batch(
+                        feats, n_frames,
+                        {k: v[i:i + batch_size] for k, v in graphs.items()},
+                        unit=j)
+                    with span("estep.accumulate", j):
+                        for b, c in enumerate(chunk):
+                            if _failed(float(out["log_likelihood"][b])):
+                                print(f"Warning: no valid path for {c[3]}; "
+                                      "skipping", file=sys.stderr)
+                                self.failed_utterances.append(c[3])
+                                continue
+                            total.add(device_stats_to_hmm_stats(
+                                self.model, self.table,
+                                {k: v[b] for k, v in out.items()}))
+                    j += 1
+            return total
 
     def run_recipe_aligned(self, recipe: Recipe,
                            info: int = 0) -> HmmStats:

@@ -1,5 +1,5 @@
-"""Shared utilities: timing/tracing."""
+"""Shared utilities: tracing."""
 
-from aaltoasr_tpu_torch.utils.profiling import StageTimer, device_trace
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
-__all__ = ["StageTimer", "device_trace"]
+__all__ = ["device_trace"]

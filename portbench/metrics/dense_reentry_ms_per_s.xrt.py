@@ -1,0 +1,10 @@
+"""The dense step's `dense.reentry` spans (phase 3, re-entry through the
+context-pair rows, in `DenseBeamSearch._step`) over the profiled batch,
+in ms per audio second.
+Layer: dense step (`decoder/search_dense.py`).  Moves: `xrt`."""
+
+from portbench import program_spans
+
+
+def read(run):
+    return program_spans.ms_per_audio_s(run, ("dense.reentry",))

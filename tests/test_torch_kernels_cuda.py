@@ -28,6 +28,7 @@ from aaltoasr_tpu_torch.synth import (
     norm_stats, probe_frames, random_model, speaker_spkc, splice_cfg,
     uneven_model, vtln_cfg)
 from aaltoasr_tpu_torch.train.mllr import apply_model_cmllr
+from aaltoasr_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -74,12 +75,12 @@ def test_mfcc_core_matches_plain(dev, monkeypatch, rate, tile, edge,
     T = EDGES[edge](tile)
     frames = torch.tensor(probe_frames(["loud", "quiet", "tone"], T,
                                        basis.shape[0], rate, seed=T), device=dev)
-    before = frontend_cuda.mfcc_core.launches
+    before = profiling.counter("k2.launches")
     cep, pw = frontend_cuda.mfcc_core(frames, basis, mel_w, dct,
                                       magnitude=magnitude, root=root,
                                       with_power=with_power)
     torch.cuda.synchronize()
-    assert frontend_cuda.mfcc_core.launches == before + 1
+    assert profiling.counter("k2.launches") == before + 1
     ref_cep, ref_pw = frontend_cuda.reference_core(
         frames, basis, mel_w, dct, magnitude=magnitude, root=root,
         with_power=with_power)
@@ -115,10 +116,10 @@ def _check_gmm(fused, x, S, atol=1e-3):
     float32 sums in another order, atol 1e-3 at D=39 (as the parity
     tests), and padded states kept at LOG_ZERO."""
     dim = x.shape[1]
-    before = gmm_cuda.gmm_state_ll.launches
+    before = profiling.counter("k1.launches")
     out = gmm_cuda.gmm_state_ll(x, fused.we, dim)
     torch.cuda.synchronize()
-    assert gmm_cuda.gmm_state_ll.launches == before + 1
+    assert profiling.counter("k1.launches") == before + 1
     ref = gmm_cuda.reference_state_ll(x, fused.we, dim)
     assert bool(torch.isfinite(out[:, :S]).all())
     torch.testing.assert_close(out[:, :S], ref[:, :S], rtol=0, atol=atol)
@@ -227,10 +228,10 @@ def test_fused_generator_matches_unfused(dev):
     samples = rng.normal(0, 1000, (3, 16000)).astype(np.float32)
     lens = np.array([16000, 12000, 9000])
     cfg = FeatureConfig.parse(MFCC_CFG)
-    before = frontend_cuda.mfcc_core.launches
+    before = profiling.counter("k2.launches")
     fused = FeatureGenerator(cfg, fused_mfcc=True,
                              device=dev).features_batch(samples, lens)
-    assert frontend_cuda.mfcc_core.launches == before + 1
+    assert profiling.counter("k2.launches") == before + 1
     plain = FeatureGenerator(cfg, device=dev).features_batch(samples, lens)
     scale = float(plain.abs().max())
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
@@ -244,10 +245,10 @@ def test_fused_generator_44k_matches_unfused(dev):
     samples = rng.normal(0, 1000, (2, 44100)).astype(np.float32)
     lens = np.array([44100, 30000])
     cfg = FeatureConfig.parse(mfcc_cfg(44100))
-    before = frontend_cuda.mfcc_core.launches
+    before = profiling.counter("k2.launches")
     fused = FeatureGenerator(cfg, fused_mfcc=True,
                              device=dev).features_batch(samples, lens)
-    assert frontend_cuda.mfcc_core.launches == before + 1
+    assert profiling.counter("k2.launches") == before + 1
     plain = FeatureGenerator(cfg, device=dev).features_batch(samples, lens)
     scale = float(plain.abs().max())
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
@@ -307,9 +308,9 @@ def test_fused_generator_splice_matches_unfused(dev):
     samples = rng.normal(0, 1000, (3, 16000)).astype(np.float32)
     lens = np.array([16000, 12000, 9000])
     fused_fg = _speaker_generator("splice", dev, fused_mfcc=True)
-    before = frontend_cuda.mfcc_core.launches
+    before = profiling.counter("k2.launches")
     fused = fused_fg.features_batch(samples, lens)
-    assert frontend_cuda.mfcc_core.launches == before + 1
+    assert profiling.counter("k2.launches") == before + 1
     plain = _speaker_generator("splice", dev).features_batch(samples, lens)
     scale = float(plain.abs().max())
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * scale)
@@ -320,10 +321,10 @@ def test_vtln_generator_does_not_launch_mfcc_core(dev, name):
     """The fft feeds the vtln module, so the MFCC core does not fuse."""
     fg = _speaker_generator(name, dev, fused_mfcc=True)
     assert fg._fusion is None
-    before = frontend_cuda.mfcc_core.launches
+    before = profiling.counter("k2.launches")
     x = fg.features(np.random.default_rng(10).normal(
         0, 1000, 16000).astype(np.float32))
-    assert frontend_cuda.mfcc_core.launches == before
+    assert profiling.counter("k2.launches") == before
     assert bool(torch.isfinite(x).all())
 
 

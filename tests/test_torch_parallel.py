@@ -19,7 +19,6 @@ for the module.  The ranks re-import this module, so it imports jax
 and the JAX package inside the tests only, and each rank asserts that
 jax stayed out of its process."""
 
-import io
 import json
 import subprocess
 import sys
@@ -39,7 +38,8 @@ from aaltoasr_tpu_torch.parallel import distributed
 from aaltoasr_tpu_torch.synth import (
     MFCC_CFG, exact_features, exact_lna_codes, random_model)
 from aaltoasr_tpu_torch.train import estep
-from aaltoasr_tpu_torch.utils.profiling import StageTimer, device_trace
+from aaltoasr_tpu_torch.utils import profiling
+from aaltoasr_tpu_torch.utils.profiling import device_trace
 
 ROOT = Path(__file__).resolve().parents[1]
 LAYOUTS = ((8, 1), (4, 2), (2, 4))
@@ -398,36 +398,6 @@ def test_dense_decode_sharded_over_batch(world):
             assert lp == pytest.approx(a.log_prob, rel=1e-5)
 
 
-@pytest.mark.parametrize("stages, enabled", [
-    ([("frontend", 1.25), ("scoring", 0.0004), ("decode", 123.456789)],
-     True),
-    ([("a very long stage name indeed", 2.0)], True),
-    ([], True),
-    ([("decode", 1.0)], False),
-])
-def test_stage_timer_report_identical(stages, enabled):
-    from aaltoasr_tpu.utils.profiling import StageTimer as JTimer
-    texts = []
-    for cls in (StageTimer, JTimer):
-        timer = cls(enabled=enabled)
-        timer.stages = list(stages)
-        out = io.StringIO()
-        timer.report(out=out)
-        texts.append(out.getvalue())
-    assert texts[0] == texts[1]
-
-
-def test_stage_timer_stages():
-    timer = StageTimer()
-    with timer.stage("a"):
-        pass
-    timer.start("b")
-    timer.start("c")
-    timer.report(out=io.StringIO())
-    assert [name for name, _ in timer.stages] == ["a", "b", "c"]
-    assert all(t >= 0 for _, t in timer.stages)
-
-
 def test_device_trace_noop_without_dir(monkeypatch, tmp_path, capsys):
     monkeypatch.delenv("AALTOASR_TRACE_DIR", raising=False)
     monkeypatch.chdir(tmp_path)
@@ -439,17 +409,34 @@ def test_device_trace_noop_without_dir(monkeypatch, tmp_path, capsys):
 
 def test_device_trace_writes_trace(monkeypatch, tmp_path, capsys):
     """With AALTOASR_TRACE_DIR set: one Chrome trace holding the traced
-    operators, and the JAX package's stderr line."""
+    operators, the span's ``asr/`` range and, as a process of their own
+    on the trace's time base, the tracer's records; on stderr the JAX
+    package's line, then the span and counter summary."""
     trace_dir = tmp_path / "trace"
     monkeypatch.setenv("AALTOASR_TRACE_DIR", str(trace_dir))
+    before = profiling.counter("test.calls")
     with device_trace():
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("test.mm", 7):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        profiling.count("test.calls", 3)
     files = list(trace_dir.glob("*.pt.trace.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
-    assert capsys.readouterr().err == \
-        f"device trace written to {trace_dir}\n"
+    (rng,) = [e for e in events if e.get("name") == "asr/test.mm"]
+    (rec,) = [e for e in events if e.get("cat") == "asr"]
+    assert rec["name"] == "test.mm" and rec["args"]["unit"] == 7
+    assert rec["pid"] != rng["pid"]
+    # the record lies inside its range, on the same time base
+    assert rng["ts"] <= rec["ts"] + 1e-3
+    assert rec["ts"] + rec["dur"] <= rng["ts"] + rng["dur"] + 1e-3
+    assert profiling.counter("test.calls") == before + 3
+    err = capsys.readouterr().err.splitlines()
+    assert err[0] == f"device trace written to {trace_dir}"
+    (line,) = [ln for ln in err if ln.split()[:2] == ["test.mm", "1"]]
+    total_ms, self_ms = map(float, line.split()[2:])
+    assert total_ms == self_ms >= 0
+    assert err[-1] == "  counter test.calls 3"
 
 
 def test_entry_matches_jax_entry():
