@@ -12,10 +12,13 @@ via [P*K, T] x [T, D] products and scatter-adds.  Frames at or past an
 utterance's ``n_frames`` are inert: the recursions freeze there, so one
 padded shape serves a whole bucket.
 
-The forward and backward recursions are Python frame loops that write
-into preallocated [B, T, P] tensors and never synchronize with the host;
-the transition posteriors need no loop (each frame's term is
-independent) and run as one vectorized pass over time, in chunks.
+The forward and backward recursions run on a card as one launch of the
+CUDA kernel `ops/fb_cuda.py` a batch (`_recursions`), and elsewhere as
+Python frame loops that write into preallocated [B, T, P] tensors and
+never synchronize with the host, in each graph form's own order on both;
+the transition posteriors need no loop
+(each frame's term is independent) and run as one vectorized pass over
+time, in chunks.
 Scatter-adds on the GPU use atomics, so sums change order from run to
 run: compare statistics within tolerance.  Products run in IEEE float32
 (TF32 off).
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F_
 
+from aaltoasr_tpu_torch.ops import fb_cuda
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO, logsumexp
 
 # elements of one float32 intermediate of the vectorized transition pass
@@ -124,8 +128,9 @@ def _chunks(T1: int, per_frame: int):
         yield s, min(T1, s + step)
 
 
-def _forward(obs_pos, graph, valid):
-    """The forward recursion: alphas [B, T, P], frozen on masked frames."""
+def _gather_loops(obs_pos, graph, valid, backward: bool = True):
+    """The plain recursions in gather form: alphas [B, T, P] and, with
+    ``backward``, betas [B, T, P] (else None), frozen on masked frames."""
     B, T, P = obs_pos.shape
     dev = obs_pos.device
     in_src, in_logp = graph["in_src"], graph["in_logp"]
@@ -137,14 +142,45 @@ def _forward(obs_pos, graph, valid):
         new = logsumexp(_take(alpha, in_src) + in_logp, dim=2) + obs_pos[:, t]
         new = torch.clamp(new, min=LOG_ZERO)
         torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
-    return alphas
+    if not backward:
+        return alphas, None
+
+    out_tgt, out_logp = graph["out_tgt"], graph["out_logp"]
+    betas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    betas[:, T - 1] = _final(graph, P, dev)
+    for t in range(T - 2, -1, -1):
+        beta = betas[:, t + 1]
+        contrib = (out_logp + _take(obs_pos[:, t + 1], out_tgt)
+                   + _take(beta, out_tgt))
+        new = torch.clamp(logsumexp(contrib, dim=2), min=LOG_ZERO)
+        torch.where(valid[:, t + 1, None], new, beta, out=betas[:, t])
+    return alphas, betas
+
+
+def _recursions(obs_pos, graph, n_frames, valid, shift: bool = False,
+                backward: bool = True):
+    """(alphas, betas) of the masked forward-backward (betas None without
+    ``backward``), in the gather form or, with ``shift``, the shift form
+    of a shift-compiled graph: one launch of the CUDA kernel
+    `ops/fb_cuda.py` where obs_pos lies on a card, else the plain frame
+    loops of that form (`_gather_loops`, `_shift_loops`), which the
+    kernel follows step for step."""
+    B, T, P = obs_pos.shape
+    dev = obs_pos.device
+    if fb_cuda.supports(obs_pos):
+        return fb_cuda.chain_fb(obs_pos, graph, _entry(graph, B, P, dev),
+                                _final(graph, P, dev), n_frames, shift,
+                                backward)
+    loops = _shift_loops if shift else _gather_loops
+    return loops(obs_pos, graph, valid, backward)
 
 
 def masked_forward_log_likelihood(obs_pos, graph, n_frames):
     """The total log-likelihood [B] that `masked_forward_backward`
     returns, from the forward pass alone."""
     T, P = obs_pos.shape[1:]
-    alphas = _forward(obs_pos, graph, _valid(n_frames, T))
+    alphas, _ = _recursions(obs_pos, graph, n_frames, _valid(n_frames, T),
+                            backward=False)
     return logsumexp(alphas[:, T - 1] + _final(graph, P, obs_pos.device),
                      dim=1)
 
@@ -163,21 +199,10 @@ def masked_forward_backward(obs_pos, graph, n_frames, num_trans_slots: int,
     dev = obs_pos.device
     in_src, in_logp = graph["in_src"], graph["in_logp"]
     in_slot = graph["in_slot"]
-    out_tgt, out_logp = graph["out_tgt"], graph["out_logp"]
     valid = _valid(n_frames, T)
 
-    alphas = _forward(obs_pos, graph, valid)
-    beta_last = _final(graph, P, dev)
-    total = logsumexp(alphas[:, T - 1] + beta_last, dim=1)
-
-    betas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
-    betas[:, T - 1] = beta_last
-    for t in range(T - 2, -1, -1):
-        beta = betas[:, t + 1]
-        contrib = (out_logp + _take(obs_pos[:, t + 1], out_tgt)
-                   + _take(beta, out_tgt))
-        new = torch.clamp(logsumexp(contrib, dim=2), min=LOG_ZERO)
-        torch.where(valid[:, t + 1, None], new, beta, out=betas[:, t])
+    alphas, betas = _recursions(obs_pos, graph, n_frames, valid)
+    total = logsumexp(alphas[:, T - 1] + _final(graph, P, dev), dim=1)
 
     gamma = torch.exp(torch.clamp(alphas + betas - total[:, None, None],
                                   min=-80.0))
@@ -635,6 +660,46 @@ def _lse4(a, b, c, d):
                        torch.full((), LOG_ZERO, device=a.device))
 
 
+def _shift_loops(obs_pos, graph, valid, backward: bool = True):
+    """The plain recursions in shift form (`_gather_loops`' contract):
+    each step relaxes the three shift classes as array shifts and the
+    irregular edges with one gather and scatter-logsumexp."""
+    B, T, P = obs_pos.shape
+    dev = obs_pos.device
+    w0, w1, w2 = (graph["sh_logp"][:, d] for d in range(3))     # [B, P]
+    ir_src, ir_tgt = graph["ir_src"], graph["ir_tgt"]
+    ir_logp = graph["ir_logp"]
+
+    alphas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    torch.clamp(obs_pos[:, 0] + _entry(graph, B, P, dev), min=LOG_ZERO,
+                out=alphas[:, 0])
+    for t in range(1, T):
+        alpha = alphas[:, t - 1]
+        c0 = alpha + w0
+        c1 = _sh(alpha, 1, LOG_ZERO) + w1
+        c2 = _sh(alpha, 2, LOG_ZERO) + w2
+        cir = _scatter_lse(_take(alpha, ir_src) + ir_logp, ir_tgt, P)
+        new = torch.clamp(_lse4(c0, c1, c2, cir) + obs_pos[:, t],
+                          min=LOG_ZERO)
+        torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
+    if not backward:
+        return alphas, None
+
+    # backward: out-edge of q with shift d has weight w_d[q+d]
+    betas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
+    betas[:, T - 1] = _final(graph, P, dev)
+    for t in range(T - 2, -1, -1):
+        beta = betas[:, t + 1]
+        t_ob = obs_pos[:, t + 1] + beta              # [B, P] target term
+        c0 = w0 + t_ob
+        c1 = _sh_back(w1 + t_ob, 1, LOG_ZERO)
+        c2 = _sh_back(w2 + t_ob, 2, LOG_ZERO)
+        cir = _scatter_lse(ir_logp + _take(t_ob, ir_tgt), ir_src, P)
+        new = torch.clamp(_lse4(c0, c1, c2, cir), min=LOG_ZERO)
+        torch.where(valid[:, t + 1, None], new, beta, out=betas[:, t])
+    return alphas, betas
+
+
 def masked_forward_backward_shift(obs_pos, graph, n_frames,
                                   num_trans_slots: int,
                                   with_transitions: bool = True,
@@ -652,34 +717,8 @@ def masked_forward_backward_shift(obs_pos, graph, n_frames,
     ir_logp = graph["ir_logp"]
     valid = _valid(n_frames, T)
 
-    alphas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
-    torch.clamp(obs_pos[:, 0] + _entry(graph, B, P, dev), min=LOG_ZERO,
-                out=alphas[:, 0])
-    for t in range(1, T):
-        alpha = alphas[:, t - 1]
-        c0 = alpha + w0
-        c1 = _sh(alpha, 1, LOG_ZERO) + w1
-        c2 = _sh(alpha, 2, LOG_ZERO) + w2
-        cir = _scatter_lse(_take(alpha, ir_src) + ir_logp, ir_tgt, P)
-        new = torch.clamp(_lse4(c0, c1, c2, cir) + obs_pos[:, t],
-                          min=LOG_ZERO)
-        torch.where(valid[:, t, None], new, alpha, out=alphas[:, t])
-
-    beta_last = _final(graph, P, dev)
-    total = logsumexp(alphas[:, T - 1] + beta_last, dim=1)
-
-    # backward: out-edge of q with shift d has weight w_d[q+d]
-    betas = torch.empty((B, T, P), dtype=torch.float32, device=dev)
-    betas[:, T - 1] = beta_last
-    for t in range(T - 2, -1, -1):
-        beta = betas[:, t + 1]
-        t_ob = obs_pos[:, t + 1] + beta              # [B, P] target term
-        c0 = w0 + t_ob
-        c1 = _sh_back(w1 + t_ob, 1, LOG_ZERO)
-        c2 = _sh_back(w2 + t_ob, 2, LOG_ZERO)
-        cir = _scatter_lse(ir_logp + _take(t_ob, ir_tgt), ir_src, P)
-        new = torch.clamp(_lse4(c0, c1, c2, cir), min=LOG_ZERO)
-        torch.where(valid[:, t + 1, None], new, beta, out=betas[:, t])
+    alphas, betas = _recursions(obs_pos, graph, n_frames, valid, shift=True)
+    total = logsumexp(alphas[:, T - 1] + _final(graph, P, dev), dim=1)
 
     gamma = torch.exp(torch.clamp(alphas + betas - total[:, None, None],
                                   min=-80.0))

@@ -4,7 +4,7 @@
 
 Phases, each printing a summary line:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. the build of both CUDA kernels from `aaltoasr_tpu_torch/csrc/`;
+2. the build of the three CUDA kernels from `aaltoasr_tpu_torch/csrc/`;
 3. the MFCC-core kernel against its plain PyTorch version, timed at the
    serve path's frontend batch (128 utterances x 8 s at 16 kHz) and at
    one 8 s utterance (the main path's launch), and checked once more at
@@ -77,8 +77,9 @@ Phases, each printing a summary line:
    utterances of 500 frames (planted words checked), the first on the CPU
    too (words and records identical), timed.  Its CPU side runs in
    spawned worker processes beside the card's runs;
-11. ML training, which launches neither kernel (both counters must stay
-   at 0 over the phase): (a) the E-step (`train/estep.chain_stats`) at
+11. ML training, which launches neither K1 nor K2 (both counters must
+   stay at 0 over the phase) and the FB kernel (its counter must not):
+   (a) the E-step (`train/estep.chain_stats`) at
    bench.py's `estep_fps` point (G=10,000, S=2,500, K=8, D=39, a
    256-label chain of 512 positions, B=32 utterances of T=1,000 frames)
    in both forward-backward forms, plain and shift-compiled: frames/s
@@ -146,7 +147,8 @@ Phases, each printing a summary line:
    card's features (basebind and model byte-identical) and on its own
    frontend (the same partition); `optmodel`, `clsstep` and `clskld` on
    seeded statistics of the tied model;
-15. scale-out and tracing, which launch neither kernel: (a) the data x
+15. scale-out and tracing, which launch neither K1 nor K2 (the FB
+   kernel, which must launch, runs their E-step): (a) the data x
    model EM step (`parallel.sharded_train_step`) on a 1 x 1 NCCL mesh
    (`make_mesh()`) at phase 11's E-step point: ll against the card's
    own `estep.batch_chain_stats` (plain FB, rel 1e-4), the step's
@@ -165,7 +167,22 @@ Phases, each printing a summary line:
    the entry's model is not placed on its features, within twice the
    CPU's distance from the exact float64 codes), timed;
    (c) `dryrun_multichip(8)`: its six phases over 8 gloo ranks on the
-   card's host.
+   card's host;
+16. the forward-backward kernel (`csrc/chain_fb.cu`) in both graph
+   forms at the E-step cell's batch shape (B=8, T_pad=2,048, P=704,
+   shift-compiled chains of 2-state phones, lengths within the last 256
+   frames) and at an MMI denominator's width (B=8, T_pad=1,000, P=8,192,
+   nothing in shared memory): alphas and betas against the plain loops
+   of the same form on the same card (rows within 1e-4 of each
+   utterance's scale, the same reachable positions, frozen rows exact,
+   totals rel 1e-5), and the kernel timed (ms a launch and a recursion
+   step, `fb.launches` over the timed calls, one a call) beside the
+   plain loops it replaced.
+
+Phases 11-15 print the FB kernel's launches over the phase
+(`kernel_launches`, `fb.launches` reset at the phase's start) and fail
+where a phase that runs the forward-backward on the card launched it
+not once.
 
 It then prints one JSON line of per-kernel results (each kernel's time
 beside its bound: the larger of its bytes over 3.35 TB/s and its
@@ -197,6 +214,7 @@ MFCC_SOURCE = "aaltoasr_tpu_torch/csrc/mfcc_core.cu"
 GMM_SOURCE = "aaltoasr_tpu_torch/csrc/gmm_state_ll.cu"
 MFCC_REPLACES = "aaltoasr_tpu/ops/frontend_pallas.py:60"
 GMM_REPLACES = "aaltoasr_tpu/ops/gmm_pallas.py:144"
+FB_SOURCE = "aaltoasr_tpu_torch/csrc/chain_fb.cu"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, the same
 SPEAKERS = ("s0", "s1", "s2")
@@ -271,9 +289,17 @@ def sync(device):
 
 
 def kernel_launches() -> dict:
-    """K2's and K1's launches since the tracer's last `reset`."""
+    """K2's, K1's and the FB kernel's launches since the tracer's last
+    `reset`."""
     return {"mfcc_core": profiling.counter("k2.launches"),
-            "gmm_state_ll": profiling.counter("k1.launches")}
+            "gmm_state_ll": profiling.counter("k1.launches"),
+            "chain_fb": profiling.counter("fb.launches")}
+
+
+def tpu_launches(launches: dict) -> dict:
+    """K2's and K1's of ``launches``: the kernels that replace the JAX
+    package's Pallas kernels."""
+    return {k: v for k, v in launches.items() if k != "chain_fb"}
 
 
 def card_line() -> str:
@@ -285,9 +311,10 @@ def card_line() -> str:
 
 def phase_build():
     from aaltoasr_tpu_torch.ops import cuda_build
+    from aaltoasr_tpu_torch.ops.fb_cuda import _lib as fb_lib
     from aaltoasr_tpu_torch.ops.frontend_cuda import _lib as mfcc_lib
     from aaltoasr_tpu_torch.ops.gmm_cuda import _lib as gmm_lib
-    sources = ("mfcc_core.cu", "gmm_state_ll.cu")
+    sources = ("mfcc_core.cu", "gmm_state_ll.cu", "chain_fb.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         built = list(pool.map(cuda_build.build, sources))
@@ -295,10 +322,11 @@ def phase_build():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[2] build {source}: {time.perf_counter() - t0:.2f} s "
-              f"(both in parallel) -> {path.name}; "
+              f"(all in parallel) -> {path.name}; "
               f"{' | '.join(regs) or 'reused'}", flush=True)
     mfcc_lib()
     gmm_lib()
+    fb_lib()
 
 
 def _within(got, ref, rtol, atol) -> bool:
@@ -511,7 +539,7 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
         rc = recognize.main(argv)
     sync(device)
     t_dec = time.perf_counter() - t0
-    launches = kernel_launches()
+    launches = tpu_launches(kernel_launches())
 
     lines = [ln for ln in out.getvalue().splitlines() if ln.endswith(")")]
     for ln in lines:
@@ -598,7 +626,7 @@ def _phone_probs(argv, device) -> tuple[dict, float]:
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"phone_probs {' '.join(argv)} returned {rc}")
-    return (kernel_launches(), wall)
+    return (tpu_launches(kernel_launches()), wall)
 
 
 def _code_agreement(got, want, label) -> str:
@@ -1571,7 +1599,7 @@ def phase_stream(device, task, recognize_argv, card="", T=1000,
             secs += os.path.getsize(raw) / 2 / 16000
     finally:
         StreamingDecoder.push_frames = push
-    launches = kernel_launches()
+    launches = tpu_launches(kernel_launches())
     print(f"[10] decode_stream --device {device.type} on {len(raws)} WAVs "
           f"as raw "
           f"s16le ({secs:.1f} s of audio): {t_card:.3f} s wall = "
@@ -2083,12 +2111,15 @@ def phase_train(device, card="", point=ESTEP_POINT, n_wavs=8,
           f"model: {close} of scale", flush=True)
 
     launches = kernel_launches()
-    if any(launches.values()):
+    if any(tpu_launches(launches).values()):
         fail(f"a TPU kernel launched on the training path: {launches}")
+    if launches["chain_fb"] < 1:
+        fail(f"the FB kernel did not launch on the training path: "
+             f"{launches}")
     shutil.rmtree(root)
-    print(f"[11] launches over the phase {launches} (neither kernel is on "
-          f"this path); phase 11 took {time.perf_counter() - t_phase:.1f} s "
-          f"on {card}", flush=True)
+    print(f"[11] launches over the phase {launches} (neither K1 nor K2 is "
+          f"on this path; the FB kernel is); phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return launches, rates["plain"]
 
 
@@ -2452,7 +2483,7 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
                  for m in DISCRIM_MODES}
 
     def counts():
-        return kernel_launches()
+        return tpu_launches(kernel_launches())
 
     # (a) the device point
     profiling.reset()
@@ -2472,8 +2503,13 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
             call = dp.call(mode, b)
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
+            fb0 = profiling.counter("fb.launches")
             out = call()
             sync(device)
+            fb = profiling.counter("fb.launches") - fb0
+            if mode == "mmi" and fb < 1:
+                fail(f"mmi B={b}: the FB kernel did not launch on the "
+                     f"denominator")
             peak = _peak_gib(device)
             if b == 1:
                 card_out[mode] = _flat0(out)
@@ -2491,7 +2527,8 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
                   f"({b * T / wall / 125:.1f}x real time; median of {reps} "
                   f"call(s) after a first, ms: "
                   + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-                  + f"); peak {peak}; over {point['T_prof']} frames: "
+                  + f"); FB kernel launches a call {fb}; peak {peak}; over "
+                  f"{point['T_prof']} frames: "
                   + _profile_call(dp.call(mode, b, point["T_prof"]), device,
                                   point["T_prof"], cpu=False), flush=True)
     if any(counts().values()):
@@ -2738,12 +2775,16 @@ def phase_discrim(device, card="", point=DISCRIM_POINT, reps=1,
           + "; ".join(lines[0]), flush=True)
     pool.shutdown()
     shutil.rmtree(root)
+    fb = profiling.counter("fb.launches")
+    if fb < 1:
+        fail("the FB kernel did not launch in phase [12] (b)")
     print(f"[12] stages (s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items())
-        + f"; K1/K2 launches in (b) {counts()} (all in make_hmmnets -d); "
+        + f"; K1/K2 launches in (b) {counts()} (all in make_hmmnets -d), "
+        f"FB kernel launches in (b) {fb}; "
         f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}",
         flush=True)
-    return mh_launches
+    return dict(mh_launches, chain_fb=fb)
 
 
 # -- [13] speaker adaptation and FST decoding -------------------------------
@@ -3101,8 +3142,11 @@ def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
                   cfeats[0], pad_chain(chains[0], chains[0].num_positions),
                   T[0]), device, T[0]), flush=True)
     est_launches = kernel_launches()
-    if any(est_launches.values()):
+    if any(tpu_launches(est_launches).values()):
         fail(f"a TPU kernel launched in adaptation estimation: "
+             f"{est_launches}")
+    if est_launches["chain_fb"] < 1:
+        fail(f"the FB kernel did not launch in adaptation estimation: "
              f"{est_launches}")
 
     # (b) recognize --adapt in every mode on the 1,000-word task
@@ -3274,9 +3318,11 @@ def phase_adapt_fst(device, task, card="", point=ADAPT_POINT, n_wavs=4,
     pool.shutdown()
     shutil.rmtree(root)
     launches = kernel_launches()
-    if any(launches.values()):
+    if any(tpu_launches(launches).values()):
         fail(f"a TPU kernel launched in phase [13]: {launches}")
-    print(f"[13] K1/K2 launches {launches}; phase 13 took "
+    if launches["chain_fb"] < 1:
+        fail(f"the FB kernel did not launch in phase [13]: {launches}")
+    print(f"[13] K1/K2 and FB kernel launches {launches}; phase 13 took "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return launches
 
@@ -3493,9 +3539,9 @@ def phase_tie(device, card="", n_wavs=16, seconds=8.0, count=200) -> dict:
     pool.shutdown()
     shutil.rmtree(root)
     launches = kernel_launches()
-    if any(launches.values()):
+    if any(tpu_launches(launches).values()):
         fail(f"a TPU kernel launched in phase [14]: {launches}")
-    print(f"[14] K1/K2 launches {launches}; phase 14 took "
+    print(f"[14] K1/K2 and FB kernel launches {launches}; phase 14 took "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return launches
 
@@ -3618,6 +3664,118 @@ def _trace_profile(trace_dir, frames, device) -> str:
         fail("the trace device_trace wrote holds no CUDA kernel")
     return _busy_line(dev, frames, f"device_trace, one call, "
                       f"{os.path.getsize(paths[0]) / 2**20:.1f} MiB of trace")
+
+
+def _rows_check(label, got, want) -> float:
+    """`tests/test_torch_fb_cuda.py`'s rule for rows of alphas or betas
+    [B, T, P] against the plain loops': the same reachable entries (above
+    LOG_ZERO / 2), and those of each utterance within 1e-4 of its scale
+    (its largest magnitude, plus 1); returns the largest deviation over
+    its scale."""
+    from aaltoasr_tpu_torch.train.estep import LOG_ZERO
+    live = want > LOG_ZERO / 2
+    if not torch.equal(got > LOG_ZERO / 2, live):
+        fail(f"{label}: the kernel reaches other positions than the plain "
+             "loops")
+    worst = 0.0
+    for b in range(want.shape[0]):
+        lb = live[b]
+        if lb.any():
+            scale = float(want[b][lb].abs().max()) + 1.0
+            err = float((got[b][lb] - want[b][lb]).abs().max()) / scale
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                fail(f"{label}: utterance {b} deviates {err:.3g} of its "
+                     f"scale {scale:.4g} from the plain loops (1e-4)")
+    return worst
+
+
+def phase_fb(device, card="", shapes=((8, 2048, 704), (8, 1000, 8192)),
+             seed=0) -> list:
+    """[16] the forward-backward kernel in both graph forms at the
+    E-step cell's batch shape and at an MMI denominator's width, against
+    the plain loops of the same form on the same card; one result a
+    shape and form."""
+    from aaltoasr_tpu_torch.models.hmm import (
+        TransitionTable, build_chain, pad_chain)
+    from aaltoasr_tpu_torch.ops import fb_cuda
+    from aaltoasr_tpu_torch.synth import random_model
+    from aaltoasr_tpu_torch.train import estep
+    model = random_model(G=512, S=128)
+    table = TransitionTable.from_model(model)
+    rng = np.random.default_rng(seed)
+    results = []
+    for B, T, P in shapes:
+        graphs = []
+        for _ in range(B):
+            labels = [f"p{i}" for i in rng.integers(0, 64, P // 2 - 1)]
+            graphs.append(estep.shift_compile(
+                pad_chain(build_chain(model, table, labels), P, fan=4)))
+        g = estep.stack_graphs(graphs, device)
+        n = torch.as_tensor([T, *rng.integers(max(T - 255, 1), T + 1,
+                                              B - 1)], device=device)
+        obs = torch.as_tensor(rng.normal(-3, 1.5, (B, T, P)).astype(
+            np.float32), device=device)
+        valid = estep._valid(n, T)
+        final = estep._final(g, P, device)
+
+        def total(alphas):
+            return estep.logsumexp(alphas[:, T - 1] + final, dim=1)
+
+        for form, shift in (("gather", False), ("shift", True)):
+            loops = estep._shift_loops if shift else estep._gather_loops
+
+            def kernel():
+                return estep._recursions(obs, g, n, valid, shift)
+
+            launches = profiling.counter("fb.launches")
+            alphas, betas = kernel()
+            once = profiling.counter("fb.launches") - launches
+            pa, pb = loops(obs, g, valid)
+            rel = float(((total(alphas) - total(pa)).abs()
+                         / total(pa).abs()).max())
+            label = f"chain_fb {form} P={P}"
+            rows = {"alphas": _rows_check(f"{label} alphas", alphas, pa),
+                    "betas": _rows_check(f"{label} betas", betas, pb)}
+            for b, nb in enumerate(n.tolist()):
+                if not (torch.equal(alphas[b, nb:],
+                                    alphas[b, nb - 1].expand(T - nb, P))
+                        and torch.equal(betas[b, nb - 1:],
+                                        final[b].expand(T - nb + 1, P))):
+                    fail(f"{label}: utterance {b}'s frozen rows differ "
+                         "from the row they repeat")
+            del alphas, betas, pa, pb
+            launches = profiling.counter("fb.launches")
+            ms = timed_ms(kernel, device, iters=20)
+            launches = profiling.counter("fb.launches") - launches
+            plain_ms = timed_ms(lambda: loops(obs, g, valid), device,
+                                iters=2, warmup=1)
+            # obs read once, alphas and betas written once; a step's few
+            # dozen float32 operations a position are not the limit
+            bd = bound(0.0, 4.0 * 3 * B * T * P)
+            level = fb_cuda.plan(P, g["in_src"].shape[2], shift)
+            print(f"[16] chain_fb {form} form B={B} T_pad={T} P={P} "
+                  f"(shared-memory plan {level}; lengths {int(n.min())}-"
+                  f"{int(n.max())}): against the plain {form} loops totals "
+                  f"max rel {rel:.2e} (1e-5), alphas {rows['alphas']:.2e} "
+                  f"and betas {rows['betas']:.2e} of scale (1e-4), frozen "
+                  f"rows exact; kernel {ms:.4f} ms a launch, "
+                  f"{1e3 * ms / T:.3f} us a step ({once} + {launches} "
+                  f"fb.launches over 1 + 22 calls; bound {bd[0]:.4f} ms by "
+                  f"{bd[1]}, {100 * bd[0] / ms:.1f}%), plain loops "
+                  f"{plain_ms:.1f} ms ({plain_ms / ms:.0f}x) on {card}",
+                  flush=True)
+            if not rel <= 1e-5 or once != 1 or launches != 22:
+                fail(f"{label}: totals off by {rel:.3g} of the plain "
+                     f"loops', or not one launch a call ({once}, "
+                     f"{launches})")
+            results.append({
+                "form": form, "shape": [B, T, P], "plan": level,
+                "kernel_ms": ms, "us_per_step": 1e3 * ms / T,
+                "plain_ms": plain_ms, "bound_ms": bd[0], "bound_by": bd[1],
+                "total_rel": rel, "alphas_rel": rows["alphas"],
+                "betas_rel": rows["betas"]})
+    return results
 
 
 def phase_scaleout(device, card="", point=ESTEP_POINT, plain_fps=None,
@@ -3794,9 +3952,11 @@ def phase_scaleout(device, card="", point=ESTEP_POINT, plain_fps=None,
     for ln in lines:
         print(f"[15]   {ln}", flush=True)
     launches = kernel_launches()
-    if any(launches.values()):
+    if any(tpu_launches(launches).values()):
         fail(f"a TPU kernel launched in phase [15]: {launches}")
-    print(f"[15] K1/K2 launches {launches}; phase 15 took "
+    if launches["chain_fb"] < 1:
+        fail(f"the FB kernel did not launch in phase [15]: {launches}")
+    print(f"[15] K1/K2 and FB kernel launches {launches}; phase 15 took "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return launches
 
@@ -3844,6 +4004,7 @@ def main() -> int:
     tie_launches = phase_tie(device, card=card)
     scaleout_launches = phase_scaleout(device, card=card,
                                        plain_fps=plain_fps)
+    fb = phase_fb(device, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -3870,6 +4031,14 @@ def main() -> int:
         k["launches_phase15"] = scaleout_launches[k["name"]]
         k["phase10_blocks"] = s_blocks
         k["block_shape"] = blk
+    # [11]-[15]: the FB kernel's launches over each phase; [16] the
+    # kernel against the plain loops at its shapes
+    kernels.append({"name": "chain_fb", "route": "cuda",
+                    "source": FB_SOURCE, "replaces": None, "shapes": fb,
+                    **{f"launches_phase{i}": n["chain_fb"] for i, n in (
+                        (11, train_launches), (12, discrim_launches),
+                        (13, adapt_launches), (14, tie_launches),
+                        (15, scaleout_launches))}})
     print(f"[total] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
