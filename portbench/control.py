@@ -28,16 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 def readings(name: str, seed: int, seconds: float, device, spec=None) -> dict:
     """{"program": [(number, value)], "control": [(number, value)]} of one
     seed."""
-    import importlib
-
     import torch
 
     from portbench import harness, run
     bench, entry, wl, cfg = spec or run.cell_spec(name)
-    mod, cls = run.LOOPS[wl["loop"]]
     with tempfile.TemporaryDirectory(prefix="portbench-") as workdir:
-        cell = getattr(importlib.import_module(mod), cls)(
-            cfg, wl, seed, device, workdir)
+        cell = run.loop_class(wl["loop"])(cfg, wl, seed, device, workdir)
         window = harness.Window(seconds)
         window.start()
         cell.run(window, harness.Spans(False, device),

@@ -17,6 +17,10 @@ The loops (``loop`` in a workload file):
   appended to the running buffer, then `features_range`,
   `lna_log_probs`, `StreamingDecoder.push_frames` and `partial()`;
   `result()` and `reset()` between utterances.
+
+Loops of other shapes are files of their own (`portbench/loops/<loop>.py`
+with a module-level ``CELL``, see `run.loop_class`), built on `Cell`,
+`AsrData` (which takes a task of its own) and `build_toolbox`.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ FRAME_RATE = 125.0
 class AsrData:
     """Inputs of a recognition run, made from the seed: ``plans``,
     ``truth`` (planted word strings), ``samples`` [U, N] on the device
-    with ``num_samples`` [U], the model's arrays and the files."""
+    with ``num_samples`` [U], the model's arrays and the files.  ``task``
+    is a task of `traffic.task.decode_task`'s shape, by default the one
+    ``cfg["task"]`` names."""
 
     def __init__(self, cfg: dict, wl: dict, seed: int, device, workdir: str,
-                 laps: Laps):
-        self.task = task = decode_task(**cfg["task"])
+                 laps: Laps, task: dict | None = None):
+        self.task = task = task or decode_task(**cfg["task"])
         task["durations"] = np.round(task["durations"], 4)
         self.lengths = plan.run_lengths(wl["lengths"], FRAME_RATE, seed)
         self.plans, words = plan.plans(task, self.lengths, seed, "words")
@@ -143,11 +149,18 @@ def _sample(rng, pool: list, n: int, lengths) -> list:
 
 
 def build_toolbox(data: AsrData, wl: dict, device):
+    """The `Toolbox` of the workload file's ``search`` keys.  An optional
+    ``word_boundary`` (a morph LM's ``<w>``) is set before the lexicon is
+    read, with silences as words, as `recognize` sets both for a morph
+    LM."""
     from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
     s = wl["search"]
     t = Toolbox(data.paths["ph"], data.paths["dur"], device=device)
     t.set_optional_short_silence(s["optional_short_silence"])
     t.set_require_sentence_end(s["require_sentence_end"])
+    if "word_boundary" in s:
+        t.set_silence_is_word(True)
+        t.set_word_boundary(s["word_boundary"])
     t.lex_read(data.paths["lexicon"])
     t.ngram_read(data.paths["lm"])
     t.set_global_beam(s["beam"])
@@ -170,10 +183,10 @@ class Cell:
     check: ``hyps`` (words) and ``lp`` (log-probs or codes) by
     utterance."""
 
-    def __init__(self, cfg, wl, seed, device, workdir):
+    def __init__(self, cfg, wl, seed, device, workdir, task=None):
         self.wl, self.device = wl, device
         self.laps = Laps()
-        self.data = AsrData(cfg, wl, seed, device, workdir, self.laps)
+        self.data = AsrData(cfg, wl, seed, device, workdir, self.laps, task)
         self.pp = phone_probs(self.data, device)
         self.scorer = self.pp.fused_scorer or self.pp.scorer
         self.attempted = 0
@@ -221,8 +234,8 @@ class Cell:
 class Dense(Cell):
     """Closed loop of batches of ``batch`` utterances, back to back."""
 
-    def __init__(self, cfg, wl, seed, device, workdir):
-        super().__init__(cfg, wl, seed, device, workdir)
+    def __init__(self, cfg, wl, seed, device, workdir, task=None):
+        super().__init__(cfg, wl, seed, device, workdir, task)
         from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
         self.toolbox = build_toolbox(self.data, wl, device)
         t = self.toolbox

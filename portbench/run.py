@@ -3,10 +3,11 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout.  The cell's workload file
-(`portbench/workloads/<cell>.json`) names its loop and traffic, and
-`BENCHMARK.json` its configuration (`portbench/configs/<config>.json`)
-and metrics.  Set-up makes the inputs and the model from ``--seed``,
-builds the program and warms up; the window then runs for ``--seconds``;
+(`portbench/workloads/<cell>.json`) names its loop (`loop_class`) and
+traffic, and `BENCHMARK.json` its configuration
+(`portbench/configs/<config>.json`) and metrics.  Set-up makes the
+inputs and the model from ``--seed``, builds the program and warms up;
+the window then runs for ``--seconds``;
 the outputs kept from it are checked against the plain reference once
 the device peak has been read and the program freed.  ``--trace 1``
 adds spans and a profiled slice and reports the per-layer metrics
@@ -32,6 +33,23 @@ BENCH = ROOT / "portbench"
 LOOPS = {"dense": ("portbench.loops.asr", "Dense"),
          "stream": ("portbench.loops.asr", "Stream"),
          "estep": ("portbench.loops.estep", "EStep")}
+
+
+def loop_class(name: str):
+    """The cell class of loop ``name``: one of `LOOPS`, else the module-
+    level ``CELL`` of `portbench/loops/<name>.py`."""
+    if name in LOOPS:
+        mod, cls = LOOPS[name]
+        return getattr(importlib.import_module(mod), cls)
+    cell = None
+    if name.isidentifier() and (BENCH / "loops" / f"{name}.py").is_file():
+        cell = getattr(importlib.import_module(f"portbench.loops.{name}"),
+                       "CELL", None)
+    if cell is None:
+        raise SystemExit(f"unknown loop {name!r}: not one of "
+                         f"{sorted(LOOPS)} and no portbench/loops/{name}.py "
+                         "with a CELL")
+    return cell
 
 
 def load_json(path: Path) -> dict:
@@ -146,9 +164,7 @@ def main(argv=None, t_start=None, device=None, spec=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     trace = bool(args.trace)
     with tempfile.TemporaryDirectory(prefix="portbench-") as workdir:
-        mod, cls = LOOPS[wl["loop"]]
-        cell = getattr(importlib.import_module(mod), cls)(
-            cfg, wl, args.seed, device, workdir)
+        cell = loop_class(wl["loop"])(cfg, wl, args.seed, device, workdir)
         harness.sync(device)
         setup_s = time.perf_counter() - t_start
         print(f"portbench: set-up {setup_s:.2f} s: imports and start "

@@ -54,10 +54,8 @@ def test_jax_loaded_after_the_window_leaves_no_result(name, capsys,
                                                       monkeypatch):
     """The look for JAX comes last: a module loaded by the check still
     stops the result line."""
-    import importlib
     import types
-    mod, cls = run.LOOPS[tiny_spec(name)[2]["loop"]]
-    loop = getattr(importlib.import_module(mod), cls)
+    loop = run.loop_class(tiny_spec(name)[2]["loop"])
     orig = loop.check
 
     def check(self):
@@ -85,5 +83,5 @@ def test_every_metric_has_a_reader_and_every_cell_its_files():
         assert callable(run.load_reader(m["name"]))
     for w in bench["workloads"]:
         assert (run.BENCH / "workloads" / f"{w['name']}.json").exists()
-        assert run.load_json(run.BENCH / "workloads" /
-                             f"{w['name']}.json")["loop"] in run.LOOPS
+        assert callable(run.loop_class(run.load_json(
+            run.BENCH / "workloads" / f"{w['name']}.json")["loop"]))
