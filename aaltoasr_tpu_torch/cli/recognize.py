@@ -59,6 +59,16 @@ def is_morph_lm(path: str) -> bool:
     return False
 
 
+def morph_text(words) -> str:
+    """The words of a morph LM's units (rectool.py:1025-1037): morphs
+    concatenate; boundaries and sentence breaks become spaces."""
+    text = "".join(words)
+    text = text.replace("<w></s><s><w>", " ")
+    text = text.replace("<w>", " ")
+    text = text.replace("<s>", "").replace("</s>", "")
+    return " ".join(text.split())
+
+
 def adapt(args) -> str:
     """The adaptation stage: estimate ``<workdir>/<mode>.spkc`` unless it
     exists (rectool.py:900-912) and return its path; ``vtln+mllr`` runs
@@ -237,15 +247,7 @@ def main(argv=None) -> int:
 
     def emit(rinfo, lna_path, res):
         key = rinfo.utterance_id or os.path.basename(lna_path)
-        text = " ".join(res.words)
-        if morph_lm:
-            # rectool.py:1025-1037: morphs concatenate; boundaries and
-            # sentence breaks become spaces
-            text = text.replace(" ", "")
-            text = text.replace("<w></s><s><w>", " ")
-            text = text.replace("<w>", " ")
-            text = text.replace("<s>", "").replace("</s>", "")
-            text = " ".join(text.split())
+        text = morph_text(res.words) if morph_lm else " ".join(res.words)
         print(f"{text} ({key})")
         if args.stateseg:
             lp, _ = read_lna(lna_path)

@@ -50,7 +50,7 @@ from aaltoasr_tpu_torch.decoder.search import (
     walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
-from aaltoasr_tpu_torch.utils.profiling import span
+from aaltoasr_tpu_torch.utils.profiling import count, span
 
 NEG_INF = float("-inf")
 # C: word-end histories re-entered per frame (the reference's default
@@ -362,12 +362,14 @@ class DenseBeamSearch:
             c_word = t["we_word"][cand]
             c_skip = skip[cand]
             c_state = lm[:, wn].gather(1, cand)
-            if self._mw_cmax == 1:
-                lm_next, lm_score = self._walk(
-                    c_state, t["we_lmid"][cand].clamp(min=0))
-            else:
-                lm_next, lm_score = walk_components(
-                    self._walk, c_state, t["mw_comp"][c_word.clamp(min=0)])
+            with span("dense.lmwalk"):
+                if self._mw_cmax == 1:
+                    lm_next, lm_score = self._walk(
+                        c_state, t["we_lmid"][cand].clamp(min=0))
+                else:
+                    lm_next, lm_score = walk_components(
+                        self._walk, c_state,
+                        t["mw_comp"][c_word.clamp(min=0)])
             lm_next = torch.where(c_skip, c_state, lm_next)
             lm_score = torch.where(c_skip, 0.0, lm_score)
             c_am = we_am.gather(1, cand)
@@ -550,7 +552,11 @@ class DenseBeamSearch:
         # invalid frames hold no record: word and pointer -1, scores 0
         fills = (-1, -1, 0.0, 0.0)
         recs = [[] for _ in range(4 if lattice else 2)]
+        # the least a frame moves: the carried state read once, written
+        # once
+        state_bytes = 2 * B * N * sum(x.element_size() for x in state)
         for i in range(T - 1):
+            count("dense.state_bytes", state_bytes)
             with span("dense.step", i):
                 v = (i + 1) < n_frames                       # [B]
                 new_state, rows, new_fin = self._step(
@@ -602,8 +608,11 @@ class DenseBeamSearch:
         ``dense.step`` each frame (its self time the state freeze and
         the record selection), with one child per phase of `_step`
         (``dense.arcs``, ``dense.words``, ``dense.reentry``,
-        ``dense.beam``); ``dense.fetch`` (the host waits for finals and
-        records) and ``dense.traceback``."""
+        ``dense.beam``), and ``dense.lmwalk`` the exact LM walk inside
+        ``dense.words``; ``dense.fetch`` (the host waits for finals and
+        records) and ``dense.traceback``.  Counter ``dense.state_bytes``:
+        per frame 2 x B x N x the bytes a node of the carried state
+        holds, the least a frame reads and writes."""
         with span("dense.decode"):
             obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
             n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,

@@ -32,6 +32,7 @@ from aaltoasr_tpu_torch.cli import morph_lattice as t_morph_lattice
 from aaltoasr_tpu_torch.cli.decode import main as t_decode
 from aaltoasr_tpu_torch.cli.phone_probs import main as t_phone_probs
 from aaltoasr_tpu_torch.cli.recognize import main as t_recognize
+from aaltoasr_tpu_torch.cli.recognize import morph_text
 from aaltoasr_tpu_torch.decoder.search import BeamSearch
 from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
 from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
@@ -139,6 +140,25 @@ def test_morph_lm(tmp_path, capsys):
     ref = _lines(capsys, j_recognize, _args(tmp_path, recipe, "ref"))
     got = _lines(capsys, t_recognize, _port_args(tmp_path, recipe, "port"))
     assert len(ref) == 3 and got == ref
+
+
+def emitted_morph_text(words):
+    """`recognize`'s printed text of a morph LM's units before
+    `morph_text` was factored out of its `emit` (rectool.py:1025-1037)."""
+    text = " ".join(words)
+    text = text.replace(" ", "")
+    text = text.replace("<w></s><s><w>", " ")
+    text = text.replace("<w>", " ")
+    text = text.replace("<s>", "").replace("</s>", "")
+    return " ".join(text.split())
+
+
+@pytest.mark.parametrize("words", [
+    [], ["aa"], ["<w>", "aa", "<w>"], ["aa", "<w>", "aa", "bb", "<w>"],
+    ["<s>", "<w>", "aa", "<w>", "</s>", "<s>", "<w>", "bb", "<w>", "</s>"],
+    ["aa", "</s>", "<s>", "<w>", "bb"], ["aa", "bb", "</s>"]])
+def test_morph_text_is_what_recognize_printed(words):
+    assert morph_text(words) == emitted_morph_text(words)
 
 
 def test_recognize_defaults_match_reference(tmp_path, capsys):
