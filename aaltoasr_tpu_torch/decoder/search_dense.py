@@ -18,6 +18,11 @@ Step per frame:
 3. re-entry: the top C word ends enter through their context-pair rows
    (cross-word fan-in), competing with in-tree arrivals.
 4. observation log-likelihoods, then the global beam.
+Phases 2 and 3's [B, C] part read only the previous state and run
+first; the per-node work of 1, 3 and 4 is then one node pass and one
+beam pass: on a card the two CUDA kernels of `ops/dense_cuda.py`, which
+read and write the [B, N] state once, else the same ops in plain
+PyTorch (`_node_pass_plain`, `_beam_pass_plain`), bit for bit alike.
 
 Top-E and top-C selections break ties by lower index, as
 `jax.lax.top_k` does.  Sums x + lm_scale * y are one fused multiply-add
@@ -49,6 +54,7 @@ from aaltoasr_tpu_torch.decoder.search import (
     expand_word_boundaries, multiword_components, top_k, traceback,
     walk_components)
 from aaltoasr_tpu_torch.device import resolve_device
+from aaltoasr_tpu_torch.ops import dense_cuda
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
 from aaltoasr_tpu_torch.utils.profiling import count, span
 
@@ -252,6 +258,10 @@ class DenseBeamSearch:
             self._wb_reset = reset_code(lm, config.word_boundary)
         self.t = t
         self.lm_tables = lm_tables(lm, self.device)
+        # the node and beam kernels' tables, on a card
+        self._kt = (dense_cuda.tables(t, grp_lp, config.max_dur,
+                                      self._has_durations, NR)
+                    if self.device.type == "cuda" else None)
 
     # -- pieces of the step ----------------------------------------------
     def _walk(self, states, word):
@@ -280,177 +290,242 @@ class DenseBeamSearch:
             t[prefix + "dur_lncoef"] * torch.log(d)
             - d * t[prefix + "dur_invb"] + t[prefix + "dur_const"])
 
-    def _step(self, state, obs_t, step_idx, lattice=False):
-        """One frame for [B, N] state arrays; obs_t is [B, N] (gathered
-        per node).  The carried score is the total am + lm_scale*lms;
-        dead nodes hold LOG_ZERO.  The frame's [B, E] records are (word,
-        previous record) and, with ``lattice``, (am, lms) too."""
+    def _step(self, state, obs, step_idx, v, n_frames, fin, lattice=False,
+              spare=None, scr=None):
+        """Frame ``step_idx + 1`` of obs [B, T, S] for [B, N] state arrays;
+        ``v`` [B] says which rows it is valid for (``n_frames`` [B]).  The
+        carried score is the total am + lm_scale*lms; dead nodes hold
+        LOG_ZERO.  Phases 2 and 3 read only the old state, so they run
+        first; then the node pass (phase 1, re-entry's fan-in and the
+        observation) and the beam pass, as the CUDA kernels of
+        `ops/dense_cuda.py` where the search has them (``spare``: the
+        padded arrays the new state is written into; ``scr``: their
+        scratch), else as the plain passes.  -> (new state, the frame's
+        [B, E] records: (word, previous record) and, with ``lattice``,
+        (am, lms) too; ``fin``, the best node's (rec, total, am, lms)
+        where ``v``, else as it was)."""
+        with span("dense.words"):
+            cands, recs = self._words(state, step_idx, lattice)
+        with span("dense.reentry"):
+            reentry = self._reentry(*cands)
+        freeze = self.config.require_sentence_end
+        kt = self._kt
+        with span("dense.arcs"):
+            if kt is not None:
+                new = dense_cuda.node_pass(kt, state, spare, obs, step_idx + 1,
+                                           reentry, n_frames, freeze, scr)
+            else:
+                new, rowmax = self._node_pass_plain(
+                    state, obs[:, step_idx + 1][:, self.t["pdf"]], reentry, v)
+        with span("dense.beam"):
+            if kt is not None:
+                new, fin = dense_cuda.beam_pass(
+                    new, n_frames, step_idx + 1, freeze, self.config.beam,
+                    self.config.lm_scale_eff, fin, scr)
+            else:
+                new, fin = self._beam_pass_plain(new, rowmax, v, fin)
+        return new, recs, fin
+
+    def _words(self, state, step_idx, lattice):
+        """Phase 2, word ends of the old state: a cheap static rank of all
+        slots, the exact LM walk on the top E.  -> ((c_total, c_lms,
+        lm_next, e_rec, c_alive, cand) of the E candidates, records)."""
         cfg = self.config
         t = self.t
-        total, lms, lm, dur, rec, bo, alive = state
-        B, N = total.shape
+        total, lms, lm, dur, rec, bo, _alive = state
+        B = total.shape[0]
         E = cfg.num_records
-        C = REENTRY_WIDTH
         a_lm = cfg.lm_scale_eff
         ins = cfg.insertion_penalty_eff
         dvc = total.device
+        wn = t["we_node"]                                     # [Nw]
+        Nw = wn.shape[0]
+        skip = t["we_skip_any"]
+        tot_wn = total[:, wn]
+        lms_wn = lms[:, wn]
+        we_durb = self._dur_bonus(dur[:, wn], "we_")
+        we_am = fma(tot_wn, lms_wn, -a_lm) + t["ts_exit"] + we_durb
+        base_lms = lms_wn + t["we_pron"]
+        appr_lm = torch.where(skip, 0.0, bo[:, wn] + t["we_uni"] + ins)
+        slot_ok = ((tot_wn > LOG_ZERO / 2) & (t["we_exit"] > LOG_ZERO / 2)
+                   & (skip | (t["we_lmid"] >= 0)))
+        rank0 = torch.where(
+            slot_ok,
+            fma(tot_wn + t["ts_exit"] + we_durb, t["we_pron"] + appr_lm,
+                a_lm),
+            NEG_INF)
+        k = min(E, Nw)
+        cand = top_k(rank0, k)                                # [B, k]
+        c_ok = slot_ok.gather(1, cand)
+        if k < E:
+            zpad = torch.zeros((B, E - k), dtype=cand.dtype, device=dvc)
+            cand = torch.cat([cand, zpad], dim=1)
+            c_ok = torch.cat([c_ok, zpad.bool()], dim=1)
+        c_word = t["we_word"][cand]
+        c_skip = skip[cand]
+        c_state = lm[:, wn].gather(1, cand)
+        with span("dense.lmwalk"):
+            if self._mw_cmax == 1:
+                lm_next, lm_score = self._walk(
+                    c_state, t["we_lmid"][cand].clamp(min=0))
+            else:
+                lm_next, lm_score = walk_components(
+                    self._walk, c_state,
+                    t["mw_comp"][c_word.clamp(min=0)])
+        lm_next = torch.where(c_skip, c_state, lm_next)
+        lm_score = torch.where(c_skip, 0.0, lm_score)
+        c_am = we_am.gather(1, cand)
+        c_lms = (base_lms.gather(1, cand) + lm_score
+                 + torch.where(c_skip, 0.0, ins))
+        c_alive = c_ok & (lm_score > LOG_ZERO / 2)
+        if self._wb_tid >= 0:
+            prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
+            c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
+            if self._end_tid >= 0:
+                lm_next = torch.where(c_word == self._end_tid,
+                                      self._wb_reset, lm_next)
+        c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
 
-        # ---- 1. in-arc relaxation: shifts + grouped irregular arcs
-        with span("dense.arcs"):
-            cross = (total + self._dur_bonus(dur) if self._has_durations
-                     else total)
-            cand0 = total + t["ts_self"]
-            cand1 = _shift(cross, 1, LOG_ZERO) + t["ts_prev"]
-            cand2 = _shift(cross, 2, LOG_ZERO) + t["ts_skip"]
-            gsrc = t["grp_src"]                               # [Mi, F]
-            g_best, fwin = (cross[:, gsrc] + t["ts_grp"]).max(dim=-1)
-            src_win = gsrc[torch.arange(gsrc.shape[0], device=dvc)[None, :],
-                           fwin]                              # [B, Mi]
-            inv_g = t["grp_inv"]
+        # records: the E candidates with exact scores
+        c_prev = rec[:, wn].gather(1, cand)
+        is_word = c_alive & (c_word >= 0)
+        rec_word = torch.where(c_alive, c_word, -1)
+        rec_prev = torch.where(is_word, c_prev, -1)
+        recs = (rec_word, rec_prev)
+        if lattice:
+            recs += (torch.where(is_word, c_am, 0.0),
+                     torch.where(is_word, c_lms, 0.0))
+        slot_ptr = step_idx * E + torch.arange(E, device=dvc)
+        e_rec = torch.where(is_word, slot_ptr, c_prev)
+        return (c_total, c_lms, lm_next, e_rec, c_alive, cand), recs
 
-            def expand(vals, fill):
-                """compact [B, Mi] -> [B, N] (nodes without irregular arcs
-                get `fill`)"""
-                pad = torch.full((B, 1), fill, dtype=vals.dtype, device=dvc)
-                return torch.cat([vals, pad], dim=1)[:, inv_g]
+    def _reentry(self, c_total, c_lms, lm_next, e_rec, c_alive, cand):
+        """Phase 3's [B, C] part: the top C word ends and what each
+        carries into its context-pair row.  -> (r_total, r_alive, r_pair,
+        r_lms, r_lm, r_rec, r_bo), each [B, C]."""
+        top_c = top_k(c_total, REENTRY_WIDTH)                 # [B, C]
+        r_lms = c_lms.gather(1, top_c)
+        r_lm = lm_next.gather(1, top_c)
+        r_rec = e_rec.gather(1, top_c)
+        r_alive = c_alive.gather(1, top_c)
+        r_bo = self._bo_est(r_lm)
+        r_pair = self.t["we_pair"][cand.gather(1, top_c)]
+        r_total = torch.where(
+            r_alive, torch.clamp(c_total.gather(1, top_c), min=LOG_ZERO),
+            LOG_ZERO)
+        return r_total, r_alive, r_pair, r_lms, r_lm, r_rec, r_bo
 
-            best3, choice = torch.stack([cand0, cand1, cand2]).max(dim=0)
-            irr_sc = expand(g_best, LOG_ZERO)
-            take_irr = irr_sc > best3
-            best = torch.maximum(best3, irr_sc)
+    def _node_pass_plain(self, state, obs_t, reentry, v):
+        """The node pass in plain index ops: phase 1 (in-arc relaxation:
+        shifts + grouped irregular arcs), re-entry's fan-in of
+        ``reentry`` (`_reentry`) at the entry nodes, and the observation
+        add, obs_t [B, N] gathered per node; with ``require_sentence_end``
+        a row past its frames (``v`` false) keeps its old state.  ->
+        (new state before the beam, the rows' maxima [B]: -inf at a
+        kept row)."""
+        t = self.t
+        total, lms, lm, dur, rec, bo, _alive = state
+        B, N = total.shape
+        dvc = total.device
 
-            def pick(x, fill):
-                sel = torch.where(choice == 0, x, torch.where(
-                    choice == 1, _shift(x, 1, fill), _shift(x, 2, fill)))
-                return torch.where(take_irr,
-                                   expand(x.gather(1, src_win), fill), sel)
+        # phase 1: in-arc relaxation
+        cross = (total + self._dur_bonus(dur) if self._has_durations
+                 else total)
+        cand0 = total + t["ts_self"]
+        cand1 = _shift(cross, 1, LOG_ZERO) + t["ts_prev"]
+        cand2 = _shift(cross, 2, LOG_ZERO) + t["ts_skip"]
+        gsrc = t["grp_src"]                                   # [Mi, F]
+        g_best, fwin = (cross[:, gsrc] + t["ts_grp"]).max(dim=-1)
+        src_win = gsrc[torch.arange(gsrc.shape[0], device=dvc)[None, :],
+                       fwin]                                  # [B, Mi]
+        inv_g = t["grp_inv"]
 
-            new_lms = pick(lms, 0.0)
-            new_lm = pick(lm, 0)
-            new_rec = pick(rec, -1)
-            new_bo = pick(bo, 0.0)
-            new_dur = torch.where(take_irr | (choice != 0),
-                                  torch.zeros_like(dur), dur + 1)
-            new_alive = best > LOG_ZERO / 2
+        def expand(vals, fill):
+            """compact [B, Mi] -> [B, N] (nodes without irregular arcs get
+            `fill`)"""
+            pad = torch.full((B, 1), fill, dtype=vals.dtype, device=dvc)
+            return torch.cat([vals, pad], dim=1)[:, inv_g]
 
-        # ---- 2. word ends: cheap static rank of all slots, exact LM
-        # walk on the top E
-        with span("dense.words"):
-            wn = t["we_node"]                                 # [Nw]
-            Nw = wn.shape[0]
-            skip = t["we_skip_any"]
-            tot_wn = total[:, wn]
-            lms_wn = lms[:, wn]
-            we_durb = self._dur_bonus(dur[:, wn], "we_")
-            we_am = fma(tot_wn, lms_wn, -a_lm) + t["ts_exit"] + we_durb
-            base_lms = lms_wn + t["we_pron"]
-            appr_lm = torch.where(skip, 0.0, bo[:, wn] + t["we_uni"] + ins)
-            slot_ok = ((tot_wn > LOG_ZERO / 2) & (t["we_exit"] > LOG_ZERO / 2)
-                       & (skip | (t["we_lmid"] >= 0)))
-            rank0 = torch.where(
-                slot_ok,
-                fma(tot_wn + t["ts_exit"] + we_durb, t["we_pron"] + appr_lm,
-                    a_lm),
-                NEG_INF)
-            k = min(E, Nw)
-            cand = top_k(rank0, k)                            # [B, k]
-            c_ok = slot_ok.gather(1, cand)
-            if k < E:
-                zpad = torch.zeros((B, E - k), dtype=cand.dtype, device=dvc)
-                cand = torch.cat([cand, zpad], dim=1)
-                c_ok = torch.cat([c_ok, zpad.bool()], dim=1)
-            c_word = t["we_word"][cand]
-            c_skip = skip[cand]
-            c_state = lm[:, wn].gather(1, cand)
-            with span("dense.lmwalk"):
-                if self._mw_cmax == 1:
-                    lm_next, lm_score = self._walk(
-                        c_state, t["we_lmid"][cand].clamp(min=0))
-                else:
-                    lm_next, lm_score = walk_components(
-                        self._walk, c_state,
-                        t["mw_comp"][c_word.clamp(min=0)])
-            lm_next = torch.where(c_skip, c_state, lm_next)
-            lm_score = torch.where(c_skip, 0.0, lm_score)
-            c_am = we_am.gather(1, cand)
-            c_lms = (base_lms.gather(1, cand) + lm_score
-                     + torch.where(c_skip, 0.0, ins))
-            c_alive = c_ok & (lm_score > LOG_ZERO / 2)
-            if self._wb_tid >= 0:
-                prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
-                c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
-                if self._end_tid >= 0:
-                    lm_next = torch.where(c_word == self._end_tid,
-                                          self._wb_reset, lm_next)
-            c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
+        best3, choice = torch.stack([cand0, cand1, cand2]).max(dim=0)
+        irr_sc = expand(g_best, LOG_ZERO)
+        take_irr = irr_sc > best3
+        best = torch.maximum(best3, irr_sc)
 
-            # records: the E candidates with exact scores
-            c_prev = rec[:, wn].gather(1, cand)
-            is_word = c_alive & (c_word >= 0)
-            rec_word = torch.where(c_alive, c_word, -1)
-            rec_prev = torch.where(is_word, c_prev, -1)
-            recs = (rec_word, rec_prev)
-            if lattice:
-                recs += (torch.where(is_word, c_am, 0.0),
-                         torch.where(is_word, c_lms, 0.0))
-            slot_ptr = step_idx * E + torch.arange(E, device=dvc)
-            e_rec = torch.where(is_word, slot_ptr, c_prev)
+        def pick(x, fill):
+            sel = torch.where(choice == 0, x, torch.where(
+                choice == 1, _shift(x, 1, fill), _shift(x, 2, fill)))
+            return torch.where(take_irr,
+                               expand(x.gather(1, src_win), fill), sel)
 
-        # ---- 3. re-entry: the top C through their context-pair rows
-        with span("dense.reentry"):
-            top_c = top_k(c_total, C)                         # [B, C]
-            r_lms = c_lms.gather(1, top_c)
-            r_lm = lm_next.gather(1, top_c)
-            r_rec = e_rec.gather(1, top_c)
-            r_alive = c_alive.gather(1, top_c)
-            r_bo = self._bo_est(r_lm)
-            r_pair = t["we_pair"][cand.gather(1, top_c)]
-            NR = self._NR
-            maskC = t["left_mem"][r_pair // NR] & t["first_mem"][r_pair % NR]
-            r_total = torch.where(
-                r_alive, torch.clamp(c_total.gather(1, top_c), min=LOG_ZERO),
-                LOG_ZERO)
-            enter = torch.where(maskC & r_alive[..., None], r_total[..., None],
-                                LOG_ZERO)                     # [B, C, M]
-            e_sc, winner = enter.max(dim=1)                   # [B, M]
-            e_valid = e_sc > LOG_ZERO / 2
+        new_lms = pick(lms, 0.0)
+        new_lm = pick(lm, 0)
+        new_rec = pick(rec, -1)
+        new_bo = pick(bo, 0.0)
+        new_dur = torch.where(take_irr | (choice != 0),
+                              torch.zeros_like(dur), dur + 1)
+        new_alive = best > LOG_ZERO / 2
 
-            def c_pay(vals):
-                """the winning candidate's payload per entry node, plus the
-                pad row of nodes outside the entry space"""
-                out = torch.where(
-                    e_valid, vals.gather(1, winner),
-                    torch.zeros((), dtype=vals.dtype, device=dvc))
-                return torch.cat([out, torch.zeros((B, 1), dtype=vals.dtype,
-                                                   device=dvc)], dim=1)
+        # phase 3: the top C enter through their context-pair rows
+        r_total, r_alive, r_pair, r_lms, r_lm, r_rec, r_bo = reentry
+        NR = self._NR
+        maskC = t["left_mem"][r_pair // NR] & t["first_mem"][r_pair % NR]
+        enter = torch.where(maskC & r_alive[..., None], r_total[..., None],
+                            LOG_ZERO)                         # [B, C, M]
+        e_sc, winner = enter.max(dim=1)                       # [B, M]
+        e_valid = e_sc > LOG_ZERO / 2
 
-            inv = t["entry_inv"]
-            e_sc1 = torch.cat([e_sc, torch.full((B, 1), LOG_ZERO, device=dvc)],
-                              dim=1)
-            cur = torch.where(new_alive, best, LOG_ZERO)
-            sc_full = e_sc1[:, inv]
-            take_tgt = sc_full > cur                          # [B, N]
-            new_lms = torch.where(take_tgt, c_pay(r_lms)[:, inv], new_lms)
-            new_lm = torch.where(take_tgt, c_pay(r_lm)[:, inv], new_lm)
-            new_dur = torch.where(take_tgt, torch.zeros_like(new_dur), new_dur)
-            new_rec = torch.where(take_tgt, c_pay(r_rec)[:, inv], new_rec)
-            new_bo = torch.where(take_tgt, c_pay(r_bo)[:, inv], new_bo)
-            new_alive = new_alive | take_tgt
+        def c_pay(vals):
+            """the winning candidate's payload per entry node, plus the pad
+            row of nodes outside the entry space"""
+            out = torch.where(
+                e_valid, vals.gather(1, winner),
+                torch.zeros((), dtype=vals.dtype, device=dvc))
+            return torch.cat([out, torch.zeros((B, 1), dtype=vals.dtype,
+                                               device=dvc)], dim=1)
 
-        # ---- 4. observation + beam
-        with span("dense.beam"):
-            new_total = torch.where(take_tgt, sc_full, cur) + obs_t
-            mx = new_total.max(dim=1, keepdim=True).values
-            new_alive = new_alive & (new_total >= mx - cfg.beam)
-            new_total = torch.where(new_alive, new_total, LOG_ZERO)
-            # per-frame best snapshot (rec, total, am, lms)
-            bestn = new_total.argmax(dim=1, keepdim=True)
-            best_lms = new_lms.gather(1, bestn)[:, 0]
-            mx = mx[:, 0]
-            fin = (new_rec.gather(1, bestn)[:, 0], mx,
-                   fma(mx, best_lms, -a_lm), best_lms)
-        return ((new_total, new_lms, new_lm, new_dur, new_rec, new_bo,
-                 new_alive), recs, fin)
+        inv = t["entry_inv"]
+        e_sc1 = torch.cat([e_sc, torch.full((B, 1), LOG_ZERO, device=dvc)],
+                          dim=1)
+        cur = torch.where(new_alive, best, LOG_ZERO)
+        sc_full = e_sc1[:, inv]
+        take_tgt = sc_full > cur                              # [B, N]
+        new_lms = torch.where(take_tgt, c_pay(r_lms)[:, inv], new_lms)
+        new_lm = torch.where(take_tgt, c_pay(r_lm)[:, inv], new_lm)
+        new_dur = torch.where(take_tgt, torch.zeros_like(new_dur), new_dur)
+        new_rec = torch.where(take_tgt, c_pay(r_rec)[:, inv], new_rec)
+        new_bo = torch.where(take_tgt, c_pay(r_bo)[:, inv], new_bo)
+        new_alive = new_alive | take_tgt
+
+        # phase 4's observation
+        new_total = torch.where(take_tgt, sc_full, cur) + obs_t
+        new = (new_total, new_lms, new_lm, new_dur, new_rec, new_bo,
+               new_alive)
+        rowmax = new_total.max(dim=1).values
+        if self.config.require_sentence_end:
+            new = tuple(torch.where(v[:, None], n, o)
+                        for n, o in zip(new, state))
+            rowmax = torch.where(v, rowmax, NEG_INF)
+        return new, rowmax
+
+    def _beam_pass_plain(self, state, rowmax, v, fin):
+        """Phase 4's global beam on a node pass's ``state`` with its rows'
+        maxima, and the frame's best node for ``fin`` (rec, total, am,
+        lms), taken where ``v``; with ``require_sentence_end`` a row past
+        its frames keeps its state.  -> (state, fin)."""
+        total, lms, lm, dur, rec, bo, alive = state
+        new_alive = alive & (total >= (rowmax - self.config.beam)[:, None])
+        new_total = torch.where(new_alive, total, LOG_ZERO)
+        # per-frame best snapshot (rec, total, am, lms)
+        bestn = new_total.argmax(dim=1, keepdim=True)
+        best_lms = lms.gather(1, bestn)[:, 0]
+        new_fin = (rec.gather(1, bestn)[:, 0], rowmax,
+                   fma(rowmax, best_lms, -self.config.lm_scale_eff),
+                   best_lms)
+        if self.config.require_sentence_end:
+            new_alive = torch.where(v[:, None], new_alive, alive)
+            new_total = torch.where(v[:, None], new_total, total)
+        fin = tuple(torch.where(v, n, o) for n, o in zip(new_fin, fin))
+        return (new_total, lms, lm, dur, rec, bo, new_alive), fin
 
     def _fin_of(self, state):
         total, lms, _lm, _dur, rec, _bo, alive = state
@@ -521,15 +596,11 @@ class DenseBeamSearch:
                 fma(best_total, best_lms, -a_lm)[:, 0], best_lms[:, 0],
                 fw_best[:, 0])
 
-    def _decode(self, obs, n_frames, lm_init, lattice):
-        """[B, T, S] obs, [B] frame counts -> final scalars and the
-        [B, T-1, E] record arrays: (word id, previous record pointer) as
-        one int64 [2, B, T-1, E] tensor and, with ``lattice``, (am, lms)
-        as one [2, B, T-1, E] float tensor (bfloat16 with
-        ``records_half``), else None."""
-        cfg = self.config
+    def _initial_state(self, obs, lm_init):
+        """The [B, N] state arrays at frame 0 of obs [B, T, S]: the
+        utterance-initial entries alive with their first observation."""
         t = self.t
-        B, T, _ = obs.shape
+        B = obs.shape[0]
         N = self.tree.num_nodes
         dvc = obs.device
         r_tgt = t["init_tgt"]
@@ -540,15 +611,35 @@ class DenseBeamSearch:
         alive0[:, r_tgt] = True
         lm0 = torch.full((B, N), lm_init, dtype=torch.int64, device=dvc)
         bo0 = self._bo_est(lm0)
-        state = (am0, torch.zeros((B, N), device=dvc), lm0,
-                 torch.zeros((B, N), dtype=torch.int64, device=dvc),
-                 torch.full((B, N), -1, dtype=torch.int64, device=dvc),
-                 bo0, alive0)
+        return (am0, torch.zeros((B, N), device=dvc), lm0,
+                torch.zeros((B, N), dtype=torch.int64, device=dvc),
+                torch.full((B, N), -1, dtype=torch.int64, device=dvc),
+                bo0, alive0)
+
+    def _decode(self, obs, n_frames, lm_init, lattice):
+        """[B, T, S] obs, [B] frame counts -> final scalars and the
+        [B, T-1, E] record arrays: (word id, previous record pointer) as
+        one int64 [2, B, T-1, E] tensor and, with ``lattice``, (am, lms)
+        as one [2, B, T-1, E] float tensor (bfloat16 with
+        ``records_half``), else None."""
+        cfg = self.config
+        B, T, _ = obs.shape
+        N = self.tree.num_nodes
+        dvc = obs.device
+        state = self._initial_state(obs, lm_init)
         # Without the final </s> update the result is the best node of
         # the last valid frame: snapshot it per frame and let the state
         # run on past n_frames.  Otherwise freeze the state at n_frames.
         snap = not cfg.require_sentence_end
         fin = self._fin_of(state)
+        spare = scr = None
+        if self._kt is not None:
+            # the kernels' padded rows; the new state goes to the spare
+            state = dense_cuda.padded(state)
+            spare = dense_cuda.padded(state)
+            scr = dense_cuda.Scratch(B, dvc)
+            if obs.stride(2) != 1:
+                obs = obs.contiguous()
         # invalid frames hold no record: word and pointer -1, scores 0
         fills = (-1, -1, 0.0, 0.0)
         recs = [[] for _ in range(4 if lattice else 2)]
@@ -557,17 +648,12 @@ class DenseBeamSearch:
         state_bytes = 2 * B * N * sum(x.element_size() for x in state)
         for i in range(T - 1):
             count("dense.state_bytes", state_bytes)
+            count("dense.rows", B)
             with span("dense.step", i):
                 v = (i + 1) < n_frames                       # [B]
-                new_state, rows, new_fin = self._step(
-                    state, obs[:, i + 1][:, t["pdf"]], i, lattice)
-                if snap:
-                    fin = tuple(torch.where(v, n, o)
-                                for n, o in zip(new_fin, fin))
-                    state = new_state
-                else:
-                    state = tuple(torch.where(v[:, None], n, o)
-                                  for n, o in zip(new_state, state))
+                new_state, rows, fin = self._step(
+                    state, obs, i, v, n_frames, fin, lattice, spare, scr)
+                spare, state = state, new_state
                 for lst, r, f in zip(recs, rows, fills):
                     lst.append(torch.where(v[:, None], r, f))
         if snap:
@@ -610,9 +696,14 @@ class DenseBeamSearch:
         (``dense.arcs``, ``dense.words``, ``dense.reentry``,
         ``dense.beam``), and ``dense.lmwalk`` the exact LM walk inside
         ``dense.words``; ``dense.fetch`` (the host waits for finals and
-        records) and ``dense.traceback``.  Counter ``dense.state_bytes``:
-        per frame 2 x B x N x the bytes a node of the carried state
-        holds, the least a frame reads and writes."""
+        records) and ``dense.traceback``.  ``dense.arcs`` holds the node
+        pass (phase 1, re-entry's fan-in, the observation), ``dense.reentry``
+        re-entry's [B, C] part, ``dense.beam`` the beam pass.  Counters:
+        ``dense.state_bytes``, per frame 2 x B x N x the bytes a node of
+        the carried state holds, the least a frame reads and writes;
+        ``dense.rows``, B a frame; ``dense.node_pass.rows``
+        (`ops/dense_cuda.py`), B a launch of the node kernel, and
+        ``dense.node.launches`` / ``dense.beam.launches``, one a launch."""
         with span("dense.decode"):
             obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
             n = torch.as_tensor(np.asarray(n_frames), dtype=torch.int64,

@@ -4,7 +4,7 @@
 
 Phases, each printing a summary line:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. the build of the three CUDA kernels from `aaltoasr_tpu_torch/csrc/`;
+2. the build of the four CUDA sources from `aaltoasr_tpu_torch/csrc/`;
 3. the MFCC-core kernel against its plain PyTorch version, timed at the
    serve path's frontend batch (128 utterances x 8 s at 16 kHz) and at
    one 8 s utterance (the main path's launch), and checked once more at
@@ -19,11 +19,13 @@ Phases, each printing a summary line:
    gamma durations and a trigram LM is written as files; `PhoneProbs`
    (fused scoring, fused MFCC) writes 2-byte LNAs for 4 WAVs of 8 s, and
    `cli.recognize --engine dense` decodes them.  The kernels' launch
-   counters must show both kernels on this path, and every LNA code must
+   counters must show both kernels on this path, and the dense step's
+   node and beam kernels as often as each other; every LNA code must
    be within one step of the plain path's;
 6. the dense decoder at the bench operating point (B=128, T=1,000
    planted observations): planted-word agreement on the first 4
-   utterances and the real-time factor;
+   utterances, the real-time factor, and one node-pass and one
+   beam-pass launch a frame of every decode;
 7. speaker adaptation on the main path's WAVs (three speakers):
    `cli.phone_probs -S --fused` with a splice + LDA
    configuration and a feature transform per speaker (K2 and K1 launch
@@ -177,7 +179,19 @@ Phases, each printing a summary line:
    utterance's scale, the same reachable positions, frozen rows exact,
    totals rel 1e-5), and the kernel timed (ms a launch and a recursion
    step, `fb.launches` over the timed calls, one a call) beside the
-   plain loops it replaced.
+   plain loops it replaced;
+17. the dense step's node and beam kernels (`csrc/dense_node.cu`)
+   frame by frame against the plain passes they replace
+   (`DenseBeamSearch._node_pass_plain`, `_beam_pass_plain`) from the
+   same state and re-entries, bit for bit in the 7 state arrays, `fin`
+   and the rows' maxima, at frame counts that leave rows frozen: on
+   phase 6's tree at B=128 (the `xw1k.dense-b128` shape), on it at
+   B=512 in freeze mode (several rows a block), and on the `fi-morph`
+   configuration's 571,518-node tree (its lexicon, a small trigram in
+   place of its 6-gram) at B=128; each pass and its plain version
+   timed with CUDA events around every launch, beside the byte bound
+   (node pass: the state read and written once, 2 x B x N x 37 bytes;
+   beam pass: total and alive read once, B x N x 5).
 
 Phases 11-15 print the FB kernel's launches over the phase
 (`kernel_launches`, `fb.launches` reset at the phase's start) and fail
@@ -215,6 +229,7 @@ GMM_SOURCE = "aaltoasr_tpu_torch/csrc/gmm_state_ll.cu"
 MFCC_REPLACES = "aaltoasr_tpu/ops/frontend_pallas.py:60"
 GMM_REPLACES = "aaltoasr_tpu/ops/gmm_pallas.py:144"
 FB_SOURCE = "aaltoasr_tpu_torch/csrc/chain_fb.cu"
+DENSE_SOURCE = "aaltoasr_tpu_torch/csrc/dense_node.cu"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, the same
 SPEAKERS = ("s0", "s1", "s2")
@@ -289,17 +304,19 @@ def sync(device):
 
 
 def kernel_launches() -> dict:
-    """K2's, K1's and the FB kernel's launches since the tracer's last
-    `reset`."""
+    """K2's, K1's, the FB kernel's and the dense step's two kernels'
+    launches since the tracer's last `reset`."""
     return {"mfcc_core": profiling.counter("k2.launches"),
             "gmm_state_ll": profiling.counter("k1.launches"),
-            "chain_fb": profiling.counter("fb.launches")}
+            "chain_fb": profiling.counter("fb.launches"),
+            "dense_node": profiling.counter("dense.node.launches"),
+            "dense_beam": profiling.counter("dense.beam.launches")}
 
 
 def tpu_launches(launches: dict) -> dict:
     """K2's and K1's of ``launches``: the kernels that replace the JAX
     package's Pallas kernels."""
-    return {k: v for k, v in launches.items() if k != "chain_fb"}
+    return {k: launches[k] for k in ("mfcc_core", "gmm_state_ll")}
 
 
 def card_line() -> str:
@@ -311,10 +328,12 @@ def card_line() -> str:
 
 def phase_build():
     from aaltoasr_tpu_torch.ops import cuda_build
+    from aaltoasr_tpu_torch.ops.dense_cuda import _lib as dense_lib
     from aaltoasr_tpu_torch.ops.fb_cuda import _lib as fb_lib
     from aaltoasr_tpu_torch.ops.frontend_cuda import _lib as mfcc_lib
     from aaltoasr_tpu_torch.ops.gmm_cuda import _lib as gmm_lib
-    sources = ("mfcc_core.cu", "gmm_state_ll.cu", "chain_fb.cu")
+    sources = ("mfcc_core.cu", "gmm_state_ll.cu", "chain_fb.cu",
+               "dense_node.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         built = list(pool.map(cuda_build.build, sources))
@@ -327,6 +346,7 @@ def phase_build():
     mfcc_lib()
     gmm_lib()
     fb_lib()
+    dense_lib()
 
 
 def _within(got, ref, rtol, atol) -> bool:
@@ -510,8 +530,8 @@ def _read_codes(path) -> np.ndarray:
 
 def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
     """LNAs through both kernels, then `recognize --engine dense`.
-    Returns the kernels' launch counts from this run and recognize's
-    arguments for the task (no engine, no device)."""
+    Returns the kernels' launch counts from this run (`kernel_launches`)
+    and recognize's arguments for the task (no engine, no device)."""
     from aaltoasr_tpu_torch.cli import recognize
     from aaltoasr_tpu_torch.formats.feaconf import FeatureConfig
     from aaltoasr_tpu_torch.formats.recipe import Recipe
@@ -539,7 +559,7 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
         rc = recognize.main(argv)
     sync(device)
     t_dec = time.perf_counter() - t0
-    launches = tpu_launches(kernel_launches())
+    launches = kernel_launches()
 
     lines = [ln for ln in out.getvalue().splitlines() if ln.endswith(")")]
     for ln in lines:
@@ -548,8 +568,11 @@ def phase_main_path(device, task, workdir, n_wavs=4, seconds=8.0):
         fail(f"recognize returned {rc} with {len(lines)} result lines")
     if not all(ln.endswith(f"(u{i})") for i, ln in enumerate(lines)):
         fail("recognize result lines do not follow the recipe")
-    if min(launches.values()) < 1:
+    if min(tpu_launches(launches).values()) < 1:
         fail(f"a kernel was not launched on the main path: {launches}")
+    if (launches["dense_node"] < 1
+            or launches["dense_beam"] != launches["dense_node"]):
+        fail(f"the dense step's kernels on the main path: {launches}")
     if launches["gmm_state_ll"] != n_wavs:
         fail(f"gmm_state_ll: {launches['gmm_state_ll']} launches for "
              f"{n_wavs} utterances, not one each")
@@ -588,7 +611,9 @@ def _planted(results, true_words, n=4) -> tuple[int, int]:
 
 
 def phase_decode(device, task, B=128, T=1000, card=""):
-    """Dense decode at the bench operating point; planted-word check."""
+    """Dense decode at the bench operating point; planted-word check.
+    Returns (words in place, planted words, the kernels' launches over
+    its 4 decodes)."""
     from aaltoasr_tpu_torch.decoder.search import SearchConfig
     from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
     from aaltoasr_tpu_torch.synth import planted_obs, synth_obs
@@ -599,6 +624,7 @@ def phase_decode(device, task, B=128, T=1000, card=""):
     g = torch.Generator(device=device).manual_seed(1)
     obs = planted_obs(plan, task.model.num_states, g, device=device)
     n = np.full(B, T)
+    profiling.reset()
     res = search.decode_batch(obs, n, lattice=False)      # warm
     agree, tot = _planted(res, true_words)
     best = float("inf")
@@ -609,9 +635,19 @@ def phase_decode(device, task, B=128, T=1000, card=""):
         sync(device)
         best = min(best, time.perf_counter() - t0)
     xrt = B * T / 125.0 / best
+    launches = kernel_launches()
+    rows = profiling.counter("dense.node_pass.rows")
     print(f"[6] dense decode B={B} T={T}: planted words {agree}/{tot}; best "
-          f"of 3 {best:.3f} s = {xrt:.1f}x real time on {card}", flush=True)
-    return agree, tot
+          f"of 3 {best:.3f} s = {xrt:.1f}x real time on {card}; node / beam "
+          f"kernel launches {launches['dense_node']} / "
+          f"{launches['dense_beam']}, node-pass rows {rows} over 4 decodes",
+          flush=True)
+    if device.type == "cuda" and not (
+            launches["dense_node"] == launches["dense_beam"] == 4 * (T - 1)
+            and rows == 4 * B * (T - 1)):
+        fail(f"dense decode: not one node and one beam launch a frame "
+             f"({launches}, {rows} rows)")
+    return agree, tot, launches
 
 
 def _phone_probs(argv, device) -> tuple[dict, float]:
@@ -3778,6 +3814,171 @@ def phase_fb(device, card="", shapes=((8, 2048, 704), (8, 1000, 8192)),
     return results
 
 
+def _morph_search(device, B, T, workdir, seed=0, num_morphs=26000):
+    """(search, obs [B, T, S] numpy) on the `fi-morph` configuration's
+    tree: its 26,000 morphs with `<w>` and `</s>` as `recognize` reads a
+    morph lexicon, under a small trigram in place of its 6-gram (the node
+    pass reads no LM), obs planted along morph walks."""
+    from aaltoasr_tpu_torch.decoder.search import SearchConfig
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+    from aaltoasr_tpu_torch.decoder.toolbox import Toolbox
+    from portbench.traffic import files
+    from portbench.traffic.morph import morph_plan, morph_task
+    task = morph_task(num_morphs=num_morphs, num_phones=25, seed=0, order=3,
+                      tied_variants=6, ngram_counts={2: 60000, 3: 20000})
+    S = task["num_states"]
+    paths = files.write_model(
+        os.path.join(workdir, "morph"), task["phones"], task["transitions"],
+        np.zeros((S, 1)), np.ones((S, 1)), np.arange(S)[:, None],
+        np.ones((S, 1)), task["durations"])
+    with open(os.path.join(workdir, "morph.lex"), "w") as f:
+        f.write("\n".join(task["lex_lines"]) + "\n")
+    files.write_arpa(os.path.join(workdir, "morph.arpa"), task["vocab"],
+                     task["ngrams"])
+    tb = Toolbox(paths["ph"], paths["dur"], device="cpu")
+    tb.set_silence_is_word(True)
+    tb.set_word_boundary("<w>")
+    tb.set_optional_short_silence(True)
+    tb.lex_read(os.path.join(workdir, "morph.lex"))
+    tb.ngram_read(os.path.join(workdir, "morph.arpa"))
+    cfg = SearchConfig(lm_scale=30.0, duration_scale=3.0, num_records=32,
+                       word_boundary="<w>", require_sentence_end=True)
+    rng = np.random.default_rng(seed)
+    obs = np.full((B, T, S), -8.0, np.float32)
+    for b in range(B):
+        states, _ = morph_plan(task, T, rng)
+        obs[b, np.arange(T), states] = -0.35
+    obs += 0.5 * rng.standard_normal(obs.shape).astype(np.float32)
+    return DenseBeamSearch(tb.tree, tb.lm, tb.model, cfg,
+                           device=device), obs
+
+
+def _state_bits(x):
+    if x.dtype == torch.float32:
+        return x.contiguous().view(torch.int32)
+    return x.to(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _dense_passes(search, obs, label, card) -> dict:
+    """[17] The node and beam kernels against the plain passes, frame by
+    frame from one state (as `decode_batch` runs them), over the T-1
+    frames of ``obs`` [B, T, S] (a card tensor); lengths T, T-31, 1,
+    T-58 in turn."""
+    from aaltoasr_tpu_torch.decoder.ngram import initial_code
+    from aaltoasr_tpu_torch.ops import dense_cuda
+    cfg = search.config
+    kt = search._kt
+    if kt is None:
+        fail(f"dense passes {label}: the search on a card has no kernels")
+    B, T = obs.shape[:2]
+    N = search.tree.num_nodes
+    device = obs.device
+    n = torch.as_tensor(np.resize([T, T - 31, 1, T - 58], B), device=device)
+    freeze = cfg.require_sentence_end
+    tiles, groups, rows = dense_cuda.plan(B, N)
+    state = search._initial_state(obs, initial_code(search.lm, "<s>"))
+    fin = search._fin_of(state)
+    state = dense_cuda.padded(state)
+    spare = dense_cuda.padded(state)
+    scr = dense_cuda.Scratch(B, device)
+    pdf = search.t["pdf"]
+    names = ("total", "lms", "lm", "dur", "rec", "bo", "alive", "fin rec",
+             "fin max", "fin am", "fin lms", "row max")
+    marks, alive = [], 0.0
+    before = kernel_launches()
+    for i in range(T - 1):
+        v = (i + 1) < n
+        cands, _ = search._words(state, i, False)
+        reentry = search._reentry(*cands)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        want, rowmax = search._node_pass_plain(state, obs[:, i + 1][:, pdf],
+                                               reentry, v)
+        ev[1].record()
+        want, want_fin = search._beam_pass_plain(want, rowmax, v, fin)
+        ev[2].record()
+        got = dense_cuda.node_pass(kt, state, spare, obs, i + 1, reentry, n,
+                                   freeze, scr)
+        ev[3].record()
+        got, got_fin = dense_cuda.beam_pass(
+            got, n, i + 1, freeze, cfg.beam, cfg.lm_scale_eff,
+            tuple(f.clone() for f in fin), scr)
+        ev[4].record()
+        for name, g, w in zip(names, (*got, *got_fin, scr.rowmax),
+                              (*want, *want_fin, rowmax)):
+            if not torch.equal(_state_bits(g), _state_bits(w)):
+                fail(f"dense passes {label} frame {i + 1}: {name} differs "
+                     f"from the plain passes'")
+        marks.append(ev)
+        alive += float(got[6].float().mean())
+        spare, state, fin = state, got, got_fin
+    sync(device)
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    if not launches["dense_node"] == launches["dense_beam"] == T - 1:
+        fail(f"dense passes {label}: {launches} over {T - 1} frames")
+    if bool(scr.acc.any() or scr.arg.any() or scr.done.any()):
+        fail(f"dense passes {label}: the rows' scratch is not clear")
+    # the first 2 frames load the kernels' modules: not timed
+    ms = [sum(ev[k].elapsed_time(ev[k + 1]) for ev in marks[2:])
+          / len(marks[2:]) for k in range(4)]
+    plain_node, plain_beam, node, beam = ms
+    node_bd = bound(0.0, 2.0 * B * N * 37)
+    beam_bd = bound(0.0, 5.0 * B * N)
+    print(f"[17] dense passes {label} B={B} N={N} ({tiles} tiles x {groups} "
+          f"row groups, {rows} rows a block; "
+          f"{'freeze' if freeze else 'snap'}; lengths {int(n.min())}-"
+          f"{int(n.max())}; {100 * alive / (T - 1):.2f}% of nodes alive "
+          f"after a frame's beam on average): bit-identical to the plain "
+          f"passes over {T - 1} frames (7 state arrays, fin, row maxima); "
+          f"node pass "
+          f"{node:.4f} ms a frame (bound {node_bd[0]:.4f} ms by "
+          f"{node_bd[1]}, {100 * node_bd[0] / node:.1f}%), plain "
+          f"{plain_node:.4f} ms ({plain_node / node:.1f}x); beam pass "
+          f"{beam:.4f} ms (bound {beam_bd[0]:.4f} ms, "
+          f"{100 * beam_bd[0] / beam:.1f}%), plain {plain_beam:.4f} ms "
+          f"({plain_beam / beam:.1f}x); {launches['dense_node']} + "
+          f"{launches['dense_beam']} launches on {card}", flush=True)
+    return {"label": label, "B": B, "N": N, "T": T, "freeze": freeze,
+            "grid": [tiles, groups], "rows": rows,
+            "alive_pct": 100 * alive / (T - 1), "node": {"kernel_ms": node, "plain_ms": plain_node,
+                     "bound_ms": node_bd[0], "bound_by": node_bd[1]},
+            "beam": {"kernel_ms": beam, "plain_ms": plain_beam,
+                     "bound_ms": beam_bd[0], "bound_by": beam_bd[1]}}
+
+
+def phase_dense(device, task, card="", T=128) -> list:
+    """[17] the dense step's node and beam kernels against the plain
+    passes: phase 6's tree at B=128 (snap mode, as phase 6) and at B=512
+    in freeze mode (several rows a block), and the `fi-morph` tree at
+    B=128 (freeze mode); one result a shape."""
+    from aaltoasr_tpu_torch.decoder.search import SearchConfig
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
+    from aaltoasr_tpu_torch.synth import planted_obs, synth_obs
+    t_phase = time.perf_counter()
+    cfg = SearchConfig(lm_scale=30.0, duration_scale=3.0, num_records=32)
+    results = []
+    snap = dataclasses.replace(
+        cfg, require_sentence_end=not cfg.require_sentence_end)
+    for B, c in ((128, cfg), (512, snap)):
+        search = DenseBeamSearch(task.tree, task.fsa, task.model, c,
+                                 device=device)
+        plan, _ = synth_obs(task.model, task.info, B, T)
+        g = torch.Generator(device=device).manual_seed(1)
+        obs = planted_obs(plan, task.model.num_states, g, device=device)
+        results.append(_dense_passes(search, obs, "xw1k", card))
+        del search, obs
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        search, obs = _morph_search(device, 128, T, workdir)
+        print(f"[17] fi-morph tree ({search.tree.num_nodes} nodes) built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        results.append(_dense_passes(
+            search, torch.as_tensor(obs, device=device), "fi-morph", card))
+    print(f"[17] phase took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return results
+
+
 def phase_scaleout(device, card="", point=ESTEP_POINT, plain_fps=None,
                    reps=3, cpu_utts=2, minvar=0.1, n_ranks=8) -> dict:
     """[15] Scale-out and tracing (no kernel of its own, and neither K1
@@ -3987,7 +4188,7 @@ def main() -> int:
     gmm = phase_gmm(device, task)
     with tempfile.TemporaryDirectory() as workdir:
         launches, recognize_argv = phase_main_path(device, task, workdir)
-        agree, tot = phase_decode(device, task, card=card)
+        agree, tot, decode_launches = phase_decode(device, task, card=card)
         if agree < tot - 1:
             fail(f"planted-word check {agree}/{tot} below {tot - 1}/{tot}")
         if torch.backends.cuda.matmul.allow_tf32:
@@ -4005,6 +4206,7 @@ def main() -> int:
     scaleout_launches = phase_scaleout(device, card=card,
                                        plain_fps=plain_fps)
     fb = phase_fb(device, card=card)
+    dense = phase_dense(device, task, card=card)
 
     kernels = [
         {"name": "mfcc_core", "route": "cuda", "source": MFCC_SOURCE,
@@ -4039,6 +4241,16 @@ def main() -> int:
                         (11, train_launches), (12, discrim_launches),
                         (13, adapt_launches), (14, tie_launches),
                         (15, scaleout_launches))}})
+    # [5]: recognize --engine dense; [6]: its 4 decodes at B=128, T=1,000;
+    # [17] each kernel against its plain pass at its shapes
+    for name, part in (("dense_node", "node"), ("dense_beam", "beam")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": DENSE_SOURCE, "replaces": None,
+                        "launches": launches[name],
+                        "launches_phase6": decode_launches[name],
+                        "shapes": [{k: r[k] for k in (
+                            "label", "B", "N", "freeze", "grid", "rows")}
+                            | r[part] for r in dense]})
     print(f"[total] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
