@@ -2,9 +2,9 @@
 
 Counterpart of `aaltoasr_tpu/decoder/search.py` (the reference's
 `decoder/src/TokenPassSearch.{hh,cc}`): `SearchConfig`, the morph-mode
-word list expansion, the multiword and LM-lookahead tables, `BeamSearch`,
-the record-carrying `DecodeResult` and the push-model
-`StreamingDecoder`.
+word list expansion, the LM-lookahead tables, `BeamSearch`, the
+record-carrying `DecodeResult` and the push-model `StreamingDecoder`.
+The word-end commit rule and the record format are `wordend.py`'s.
 
 `BeamSearch` keeps a fixed-width token array per utterance and runs one
 step per frame, in a Python loop over frames:
@@ -68,8 +68,9 @@ import torch
 from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
 from aaltoasr_tpu_torch.decoder.ngram import (
-    NGramFsa, initial_code, lm_members, lm_num_codes, lm_tables,
-    member0_states, reset_code, walk_codes)
+    NGramFsa, initial_code, lm_members, lm_num_codes)
+from aaltoasr_tpu_torch.decoder.wordend import (
+    NO_RECORD, WordEnds, records, stack_records, traceback)
 from aaltoasr_tpu_torch.decoder.wordgraph import WordGraph
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
@@ -166,54 +167,6 @@ def expand_word_boundaries(words: list, cfg) -> list:
             out.append("<s>")
             out.append(cfg.word_boundary)
     return out
-
-
-def multiword_components(lm_names, lm, split: bool):
-    """Per tree word: component LM-word ids and names.
-
-    Returns (comp [V, Cmax] int32 padded with -1, lm_id [V] int32 — the
-    first component's id, or -1 when any component is missing from the
-    LM (such words are pruned, `TokenPassSearch.cc:846-862`), first_names,
-    last_names — the component names for lookahead: subtree values use
-    the first component, context rows the last (TokenPassSearch.cc:1872)).
-    With split=False every word is its own single component (Cmax == 1).
-    Words starting with '_' are silences, never split
-    (TokenPassSearch.cc:1688-1691).
-    """
-    parts_of = []
-    for w in lm_names:
-        if split and not w.startswith("_") and "_" in w:
-            ps = [p for p in w.split("_") if p]
-            parts_of.append(ps if ps else [w])
-        else:
-            parts_of.append([w])
-    cmax = max((len(p) for p in parts_of), default=1)
-    V = max(len(lm_names), 1)
-    comp = np.full((V, cmax), -1, np.int32)
-    lm_id = np.full((V,), -1, np.int32)
-    for i, ps in enumerate(parts_of):
-        ids = [lm.word_index.get(p, -1) for p in ps]
-        comp[i, :len(ids)] = ids
-        lm_id[i] = ids[0] if all(x >= 0 for x in ids) else -1
-    first = [ps[0] for ps in parts_of] or [""]
-    last = [ps[-1] for ps in parts_of] or [""]
-    return comp, lm_id, first, last
-
-
-def walk_components(walk_fn, states, comp_ids):
-    """Compose the LM walk over multiword components: walk_fn is
-    (states [...], word [...]) -> (next [...], score); comp_ids is
-    [..., Cmax] with -1 padding (identity)."""
-    st = states
-    sc = None
-    for c in range(comp_ids.shape[-1]):
-        wc = comp_ids[..., c]
-        ok = wc >= 0
-        nst, s = walk_fn(st, wc.clamp(min=0))
-        st = torch.where(ok, nst, st)
-        s = torch.where(ok, s, torch.zeros_like(s))
-        sc = s if sc is None else sc + s
-    return st, sc
 
 
 def tree_dfs_intervals(tree):
@@ -474,46 +427,14 @@ class BeamSearch:
         self._num_codes = lm_num_codes(lm)
         # (node, LM state) fits one int64 sort key
         self._fused_key = N * self._num_codes < 2 ** 62
-        lm_names = (word_classes.lm_word_names(tree.vocab)
-                    if word_classes is not None else tree.vocab)
-        we_pron = (word_classes.pron_logp(tree) if word_classes is not None
-                   else tree.we_pron_logp)
         # tree word id -> LM word id; words absent from the LM (or with
         # a missing multiword component) are pruned
-        mw_comp, lm_id, la_first, la_last = multiword_components(
-            lm_names, lm, config.split_multiwords)
-        self._mw_cmax = mw_comp.shape[1]
+        self.wordend = we = WordEnds(tree, lm, config, word_classes,
+                                     self.device)
+        lm_id, la_first, la_last = we.lm_id, we.first_names, we.last_names
         we_word = np.asarray(tree.we_word, np.int64)
-        we_lmid = np.where(we_word >= 0, lm_id[np.maximum(we_word, 0)], -1)
+        we_lmid = we.lm_ids(we_word)
         pdf = np.asarray(tree.pdf, np.int64)
-
-        # committed-at-final base validity: a token resting on a node
-        # whose only role is ending words (non-skip word ends, no
-        # continuation arc, no skip/silence end) has no uncommitted
-        # interpretation in the reference (word ids live on dedicated
-        # word-end nodes there)
-        has_arc = ((tree.arc_tgt != np.arange(N)[:, None])
-                   & (tree.arc_logp > LOG_ZERO / 2)).any(axis=1)
-        valid_we = tree.we_exit_logp > LOG_ZERO / 2
-        nonskip_we = (valid_we & (tree.we_word >= 0)
-                      & ~tree.we_skip_lm).any(axis=1)
-        skip_we = (valid_we & ((tree.we_word < 0)
-                               | tree.we_skip_lm)).any(axis=1)
-        fin_base_ok = has_arc | ~nonskip_we | skip_we
-
-        # morph word boundary: the double-boundary prune (member 0's
-        # context) and the </s> reset state (<s> then the boundary word
-        # in every member, scores discarded)
-        self._wb_tid = (tree.word_index.get(config.word_boundary, -1)
-                        if config.word_boundary else -1)
-        self._end_tid = tree.word_index.get(config.sentence_end, -1)
-        is_wb_state = None
-        if self._wb_tid >= 0:
-            m0 = members[0]
-            wbl = m0.word_index.get(config.word_boundary, -1)
-            is_wb_state = (m0.states_ending_with(wbl) if wbl >= 0
-                           else np.zeros(m0.num_states, bool))
-            self._wb_reset = reset_code(lm, config.word_boundary)
 
         # static per-word unigram estimate (member 0) for the we_prewalk
         # ranking
@@ -594,7 +515,7 @@ class BeamSearch:
                 "we_word": we_word, "we_skip": tree.we_skip_lm,
                 "we_lmid": we_lmid, "we_pair": tree.we_pair}
         flts = {"arc_lp": arc_lp, "we_exit": tree.we_exit_logp,
-                "we_pron": we_pron,
+                "we_pron": we.pron,
                 "we_uni": np.where(we_word >= 0,
                                    uni_est[np.maximum(we_word, 0)], 0.0)}
         if config.overflow_tokens:
@@ -611,18 +532,15 @@ class BeamSearch:
         self._rows_i = _RowTable(ints, np.int64, self.device)
         self._rows_f = _RowTable(flts, np.float32, self.device)
 
-        t = {"pdf": dev(pdf, i64), "fin_base_ok": dev(fin_base_ok),
-             "mw_comp": dev(mw_comp, i64),
+        t = {"pdf": dev(pdf, i64),
              "root_tgt": dev(pt, i64), "root_logp": dev(plp),
              "root_pdf": dev(pdf[rt], i64),
              "we_word": dev(we_word, i64), "we_lmid": dev(we_lmid, i64),
-             "we_exit": dev(tree.we_exit_logp), "we_pron": dev(we_pron),
+             "we_exit": dev(tree.we_exit_logp), "we_pron": dev(we.pron),
              "we_skip": dev(tree.we_skip_lm)}
         if config.overflow_tokens:
             t.update({"over_tgt": dev(o_tgt, i64), "over_lp": dev(o_lp),
                       "over_pdf": dev(pdf[o_tgt], i64)})
-        if is_wb_state is not None:
-            t["is_wb_state"] = dev(is_wb_state)
         if self._la_bigram:
             t["la2"] = dev(la2).reshape(-1)        # [(V+1) * N]
         elif self._la_ctx:
@@ -714,19 +632,8 @@ class BeamSearch:
              or config.eq_word_count_beam) and tree.fan_flags is not None):
             t["fanflag"] = dev(tree.fan_flags, i64)
         self.t = t
-        self.lm_tables = lm_tables(lm, self.device)
 
     # -- pieces of the step -------------------------------------------------
-    def _walk(self, states, word):
-        return walk_codes(self.lm, self.lm_tables, states, word)
-
-    def _mw_walk(self, states, words, lmids):
-        """LM walk of tree words (their LM ids, or their components)."""
-        if self._mw_cmax == 1:
-            return self._walk(states, lmids.clamp(min=0))
-        return walk_components(self._walk, states,
-                               self.t["mw_comp"][words.clamp(min=0)])
-
     def _ctx_levels(self, states):
         """Context lookahead lists of [B, X] LM states: per backoff level
         the padded successor (DFS position, score) rows [B, X, amax] and
@@ -892,20 +799,12 @@ class BeamSearch:
                                             pick(base_lms), pick(skip))
             s_alive, s_pair, s_law = (pick(w_alive), pick(ri["we_pair"]),
                                       pick(w_law))
-            lm_next, lm_score = self._mw_walk(s_state, s_word, pick(w_lmid))
-            lm_next = torch.where(s_skip, s_state, lm_next)
-            lm_score = torch.where(s_skip, 0.0, lm_score)
+            lm_next, lm_score = self.wordend.walk_words(s_state, s_word,
+                                                        pick(w_lmid))
+            lm_next, lm_score, lm_ok = self.wordend.commit(
+                s_state, s_word, lm_next, lm_score, s_skip)
             we_lms2 = s_base + lm_score
-            we_alive2 = s_alive & (lm_score > LOG_ZERO / 2)
-            if self._wb_tid >= 0:
-                # morph mode: prune two subsequent word boundaries, and a
-                # mid-utterance sentence end restarts the LM through <s> +
-                # boundary (TokenPassSearch.cc:869-873, 888-919)
-                prev_wb = t["is_wb_state"][member0_states(self.lm, s_state)]
-                we_alive2 = we_alive2 & ~((s_word == self._wb_tid) & prev_wb)
-                if self._end_tid >= 0:
-                    lm_next = torch.where(s_word == self._end_tid,
-                                          self._wb_reset, lm_next)
+            we_alive2 = s_alive & lm_ok
             we_total2 = s_am + ls * we_lms2
             if cfg.word_end_beam:
                 we_best = torch.where(we_alive2, we_total2, NEG_INF).max(
@@ -926,15 +825,8 @@ class BeamSearch:
             e_word, e_prev, e_lm, e_am, e_lms, e_pair, e_law = (
                 x.gather(1, order) for x in (s_word, s_prev, lm_next, s_am,
                                              we_lms2, s_pair, s_law))
-            # silence (word < 0) keeps its previous record pointer; pointers
-            # are step_idx * E + slot
-            is_word = e_alive & (e_word >= 0)
-            rec_word = torch.where(e_alive, e_word, -1)
-            rec_prev = torch.where(is_word, e_prev, -1)
-            rec_am = torch.where(is_word, e_am, 0.0)
-            rec_lms = torch.where(is_word, e_lms, 0.0)
-            slot_ptr = step_idx * E + torch.arange(E, device=dvc)
-            new_rec = torch.where(is_word, slot_ptr, e_prev)
+            recs, new_rec = records(e_alive, e_word, e_prev, step_idx,
+                                    (e_am, e_lms))
 
             # re-entry: the best Er records (records are best-first) through
             # their context rows
@@ -982,7 +874,7 @@ class BeamSearch:
             new_tok = new_tok + (new_alive, cand["law"].gather(1, sel))
             if self._carry_wc:
                 new_tok = new_tok + (cand["wc"].gather(1, sel),)
-        return new_tok, (rec_word, rec_prev, rec_am, rec_lms)
+        return new_tok, recs
 
     def _reentry_rows(self, obs_t, re_f, lev_e, acc_e):
         """Re-entry candidates of the [B, Er] records through their
@@ -1157,7 +1049,7 @@ class BeamSearch:
                full(self._la_init_row, torch.int64))
         return tok + ((full(0, torch.int64),) if self._carry_wc else ())
 
-    def _final_commit(self, node, lmst, lms, end_id):
+    def _final_commit(self, node, lmst, lms):
         """Best committed interpretation per final token: each word end
         on the token's node pays pron + insertion + LM walk (+ the
         required sentence end from the post-commit state) with no exit
@@ -1170,20 +1062,11 @@ class BeamSearch:
               & (wW >= 0))
         lmid = t["we_lmid"][node]
         ok = ok & (lmid >= 0)
-        st = lmst[..., None].expand(wW.shape)
-        nxt, sc = self._mw_walk(st, wW, lmid)
-        if self._wb_tid >= 0:
-            ok = ok & ~((wW == self._wb_tid)
-                        & t["is_wb_state"][member0_states(self.lm, st)])
-            if self._end_tid >= 0:
-                nxt = torch.where(wW == self._end_tid, self._wb_reset, nxt)
-        if end_id is not None:
-            _, end2 = self._walk(nxt, torch.full_like(nxt, end_id))
-        else:
-            end2 = torch.zeros_like(sc)
+        sc, end2, lm_ok = self.wordend.final_walk(
+            lmst[..., None].expand(wW.shape), wW, lmid)
         alt = (lms[..., None] + t["we_pron"][node] + cfg.insertion_penalty_eff
                + (sc + end2))
-        alt = torch.where(ok & (sc > LOG_ZERO / 2), alt, NEG_INF)
+        alt = torch.where(ok & lm_ok, alt, NEG_INF)
         h_best = alt.argmax(dim=2, keepdim=True)
         alt_lms = alt.gather(2, h_best)[..., 0]
         alt_w = torch.where(torch.isfinite(alt_lms),
@@ -1196,20 +1079,18 @@ class BeamSearch:
         cfg = self.config
         ls = cfg.lm_scale_eff
         node, lmst, am, lms, dur, rec, alive, law = tok[:8]
-        end_id = (self.lm.word_index.get(cfg.sentence_end)
-                  if cfg.require_sentence_end else None)
-        if end_id is not None:
-            _, end_sc = self._walk(lmst, torch.full_like(lmst, end_id))
+        if cfg.require_sentence_end and self.wordend.end_id is not None:
+            end_sc = self.wordend.end_score(lmst)
             base_lms = lms + torch.where(alive, end_sc, 0.0)
             # committed-at-final alternative: a token that reached a
             # word's last state by the final frame is committed there in
-            # the reference (fin_base_ok says whether the uncommitted
+            # the reference (`WordEnds.base_ok` says whether the uncommitted
             # interpretation exists too); the commit pays pron + LM +
             # </s> but no exit transition or duration
-            aw, alms = self._final_commit(node, lmst, lms, end_id)
+            aw, alms = self._final_commit(node, lmst, lms)
             alt_total = torch.where(alive & (aw >= 0), am + ls * alms,
                                     NEG_INF)
-            base_total = torch.where(alive & self.t["fin_base_ok"][node],
+            base_total = torch.where(alive & self.wordend.base_ok[node],
                                      am + ls * base_lms, NEG_INF)
             use_alt = alt_total > base_total
             total = torch.maximum(base_total, alt_total)
@@ -1230,9 +1111,7 @@ class BeamSearch:
         B, T, _ = obs.shape
         tok = self._seed_tokens(obs[:, 0], lm_init)
         n_dev = torch.as_tensor(n_frames, device=obs.device)
-        fills = (-1, -1, 0.0, 0.0)
-        keep = 4 if lattice else 2
-        recs = [[] for _ in range(keep)]
+        recs = [[] for _ in range(4 if lattice else 2)]
         for i in range(T - 1):
             new_tok, rows = self._step(tok, obs[:, i + 1], i)
             if (i + 1 < n_frames).all():   # host counts: no device sync
@@ -1240,16 +1119,12 @@ class BeamSearch:
             else:
                 v = (i + 1 < n_dev)[:, None]
                 tok = tuple(torch.where(v, a, b) for a, b in zip(new_tok, tok))
-                rows = tuple(torch.where(v, r, f) for r, f in zip(rows, fills))
+                rows = tuple(torch.where(v, r, f)
+                             for r, f in zip(rows, NO_RECORD))
             for lst, r in zip(recs, rows):
                 lst.append(r)
-        finals = self._finalize(tok)
-        E = self.config.num_records
-        stacked = [torch.stack(lst, dim=1) if lst else
-                   torch.full((B, 0, E), f, device=obs.device,
-                              dtype=torch.int64 if j < 2 else torch.float32)
-                   for j, (lst, f) in enumerate(zip(recs, fills))]
-        return finals, stacked
+        return self._finalize(tok), stack_records(
+            recs, B, self.config.num_records, obs.device)
 
     # -- public API ---------------------------------------------------------
     def decode(self, obs, n_frames: int | None = None,
@@ -1362,20 +1237,6 @@ def recombine(node, lm, total, alive, num_states: int, W: int,
     neg2 = torch.where(s_alive, neg_total.gather(1, s_idx), POS_INF)
     v2, p3 = torch.sort(neg2, dim=1, stable=True)
     return s_idx.gather(1, p3[:, :W]), v2[:, :W] < POS_INF
-
-
-def traceback(rec_words, rec_prevs, ptr: int, final_word: int,
-              cap: int) -> list:
-    """Word ids of the 1-best chain, oldest first: the records [F, E]
-    from pointer ``ptr`` back, then the word committed at the final
-    frame (>= 0), at most ``cap`` words (one commits per frame at most)."""
-    flat_w = rec_words.reshape(-1)
-    flat_p = rec_prevs.reshape(-1)
-    ids = [final_word] if final_word >= 0 else []
-    while ptr >= 0 and len(ids) < cap:
-        ids.append(int(flat_w[ptr]))
-        ptr = int(flat_p[ptr])
-    return [i for i in reversed(ids) if i >= 0]
 
 
 def _split_arcs(at, alp):

@@ -46,13 +46,11 @@ import torch
 
 from aaltoasr_tpu_torch.decoder.lexicon import (
     PrefixTree, duration_table, node_duration_params)
-from aaltoasr_tpu_torch.decoder.ngram import (
-    initial_code, lm_members, lm_tables, member0_states, reset_code,
-    walk_codes)
+from aaltoasr_tpu_torch.decoder.ngram import initial_code, lm_members
 from aaltoasr_tpu_torch.decoder.search import (
-    DecodeResult, SearchConfig,
-    expand_word_boundaries, multiword_components, top_k, traceback,
-    walk_components)
+    DecodeResult, SearchConfig, expand_word_boundaries, top_k)
+from aaltoasr_tpu_torch.decoder.wordend import (
+    NO_RECORD, WordEnds, records, stack_records, traceback)
 from aaltoasr_tpu_torch.device import resolve_device
 from aaltoasr_tpu_torch.ops import dense_cuda
 from aaltoasr_tpu_torch.ops.logsemiring import LOG_ZERO
@@ -168,15 +166,9 @@ class DenseBeamSearch:
             we_n = np.concatenate([we_n, np.zeros(pad, dtype=we_n.dtype)])
             we_h = np.concatenate([we_h, np.zeros(pad, dtype=we_h.dtype)])
         n_real = len(we_n) - max(pad, 0)
-        lm_names = (word_classes.lm_word_names(tree.vocab)
-                    if word_classes is not None else tree.vocab)
-        we_pron = (word_classes.pron_logp(tree) if word_classes is not None
-                   else tree.we_pron_logp)
-        mw_comp, lm_ids, _, _ = multiword_components(
-            lm_names, lm, config.split_multiwords)
-        self._mw_cmax = mw_comp.shape[1]
+        self.wordend = WordEnds(tree, lm, config, word_classes, self.device)
         we_word = tree.we_word[we_n, we_h]
-        slot_lmid = lm_ids[np.maximum(we_word, 0)]
+        slot_lmid = self.wordend.lm_ids(we_word)
         members = lm_members(lm)
         self._K = len(members)
         self._log_coeffs = lm.log_coeffs if self._K > 1 else [0.0]
@@ -193,14 +185,6 @@ class DenseBeamSearch:
         we_skip = tree.we_skip_lm[we_n, we_h]
         we_exit = np.where(np.arange(len(we_n)) < n_real,
                            tree.we_exit_logp[we_n, we_h], LOG_ZERO)
-        # committed-at-final base validity (see the exact engine)
-        fin_base_ok = (
-            ((tree.arc_tgt != np.arange(tree.num_nodes)[:, None])
-             & (tree.arc_logp > LOG_ZERO / 2)).any(axis=1)
-            | ~((tree.we_exit_logp > LOG_ZERO / 2) & (tree.we_word >= 0)
-                & ~tree.we_skip_lm).any(axis=1)
-            | ((tree.we_exit_logp > LOG_ZERO / 2)
-               & ((tree.we_word < 0) | tree.we_skip_lm)).any(axis=1))
         dur = node_duration_params(tree, model, config.duration_scale)
         self._has_durations = bool(np.any(duration_table(
             model, config.max_dur, config.duration_scale) != 0))
@@ -228,11 +212,9 @@ class DenseBeamSearch:
             "we_uni": dev(uni_w),
             "we_pair": dev(tree.we_pair[we_n, we_h], i64),
             "we_exit": dev(we_exit.astype(np.float32)),
-            "we_pron": dev(we_pron[we_n, we_h]),
+            "we_pron": dev(self.wordend.pron[we_n, we_h]),
             "we_skip": dev(we_skip),
             "we_skip_any": dev(we_skip | (we_word < 0)),
-            "fin_base_ok": dev(fin_base_ok),
-            "mw_comp": dev(mw_comp, i64),
             "init_tgt": dev(init_row[init_lp > LOG_ZERO / 2], i64),
             "init_lp": dev(init_lp[init_lp > LOG_ZERO / 2]),
         }
@@ -246,36 +228,23 @@ class DenseBeamSearch:
         t["ts_skip"] = ts * dev(shifts[2])
         t["ts_grp"] = ts * dev(grp_lp)
         t["ts_exit"] = ts * t["we_exit"]
-        # morph word boundary: double-boundary prune + </s> LM reset
-        self._wb_tid = (tree.word_index.get(config.word_boundary, -1)
-                        if config.word_boundary else -1)
-        self._end_tid = tree.word_index.get(config.sentence_end, -1)
-        if self._wb_tid >= 0:
-            m0 = members[0]
-            wbl = m0.word_index.get(config.word_boundary, -1)
-            t["is_wb_state"] = dev(m0.states_ending_with(wbl) if wbl >= 0
-                                   else np.zeros(m0.num_states, bool))
-            self._wb_reset = reset_code(lm, config.word_boundary)
         self.t = t
-        self.lm_tables = lm_tables(lm, self.device)
         # the node and beam kernels' tables, on a card
         self._kt = (dense_cuda.tables(t, grp_lp, config.max_dur,
                                       self._has_durations, NR)
                     if self.device.type == "cuda" else None)
 
     # -- pieces of the step ----------------------------------------------
-    def _walk(self, states, word):
-        return walk_codes(self.lm, self.lm_tables, states, word)
-
     def _bo_est(self, states):
         """The carried backoff payload of the word-end rank estimate:
         min(bo_weight[state], 0), and for an interpolated LM the max over
         members of log coeff + that."""
+        tables = self.wordend.tables
         if self._K == 1:
-            return torch.clamp(self.lm_tables["bo_weight"][states], max=0.0)
+            return torch.clamp(tables["bo_weight"][states], max=0.0)
         st = self.lm.decode(states)
         est = None
-        for k, tab in enumerate(self.lm_tables):
+        for k, tab in enumerate(tables):
             e = self._log_coeffs[k] + torch.clamp(
                 tab["bo_weight"][st[..., k]], max=0.0)
             est = e if est is None else torch.maximum(est, e)
@@ -365,38 +334,20 @@ class DenseBeamSearch:
         c_skip = skip[cand]
         c_state = lm[:, wn].gather(1, cand)
         with span("dense.lmwalk"):
-            if self._mw_cmax == 1:
-                lm_next, lm_score = self._walk(
-                    c_state, t["we_lmid"][cand].clamp(min=0))
-            else:
-                lm_next, lm_score = walk_components(
-                    self._walk, c_state,
-                    t["mw_comp"][c_word.clamp(min=0)])
-        lm_next = torch.where(c_skip, c_state, lm_next)
-        lm_score = torch.where(c_skip, 0.0, lm_score)
+            lm_next, lm_score = self.wordend.walk_words(
+                c_state, c_word, t["we_lmid"][cand])
+        lm_next, lm_score, c_lm_ok = self.wordend.commit(
+            c_state, c_word, lm_next, lm_score, c_skip)
         c_am = we_am.gather(1, cand)
         c_lms = (base_lms.gather(1, cand) + lm_score
                  + torch.where(c_skip, 0.0, ins))
-        c_alive = c_ok & (lm_score > LOG_ZERO / 2)
-        if self._wb_tid >= 0:
-            prev_wb = t["is_wb_state"][member0_states(self.lm, c_state)]
-            c_alive = c_alive & ~((c_word == self._wb_tid) & prev_wb)
-            if self._end_tid >= 0:
-                lm_next = torch.where(c_word == self._end_tid,
-                                      self._wb_reset, lm_next)
+        c_alive = c_ok & c_lm_ok
         c_total = torch.where(c_alive, fma(c_am, c_lms, a_lm), NEG_INF)
 
         # records: the E candidates with exact scores
         c_prev = rec[:, wn].gather(1, cand)
-        is_word = c_alive & (c_word >= 0)
-        rec_word = torch.where(c_alive, c_word, -1)
-        rec_prev = torch.where(is_word, c_prev, -1)
-        recs = (rec_word, rec_prev)
-        if lattice:
-            recs += (torch.where(is_word, c_am, 0.0),
-                     torch.where(is_word, c_lms, 0.0))
-        slot_ptr = step_idx * E + torch.arange(E, device=dvc)
-        e_rec = torch.where(is_word, slot_ptr, c_prev)
+        recs, e_rec = records(c_alive, c_word, c_prev, step_idx,
+                              (c_am, c_lms) if lattice else ())
         return (c_total, c_lms, lm_next, e_rec, c_alive, cand), recs
 
     def _reentry(self, c_total, c_lms, lm_next, e_rec, c_alive, cand):
@@ -545,12 +496,12 @@ class DenseBeamSearch:
         duration on the commit).  -> (rec, total, am, lms, final word)"""
         cfg = self.config
         t = self.t
+        we = self.wordend
         a_lm = cfg.lm_scale_eff
         tot, lms, lm, _dur, rec, _bo, alive = state
         B, N = tot.shape
-        end_id = self.lm.word_index.get(cfg.sentence_end)
-        if end_id is not None:
-            _, end_sc = self._walk(lm, torch.full_like(lm, end_id))
+        if we.end_id is not None:
+            end_sc = we.end_score(lm)
             base_lms = lms + torch.where(alive, end_sc, 0.0)
             base_tot = tot + torch.where(alive, a_lm * end_sc, 0.0)
         else:
@@ -559,30 +510,14 @@ class DenseBeamSearch:
         w_word = t["we_word"].expand(B, -1)
         w_ok = ((t["we_exit"] > LOG_ZERO / 2) & ~t["we_skip"]
                 & (t["we_word"] >= 0) & (t["we_lmid"] >= 0)) & alive[:, wn]
-        st_w = lm[:, wn]
-        if self._mw_cmax == 1:
-            nxt_w, sc_w = self._walk(
-                st_w, t["we_lmid"].clamp(min=0).expand(B, -1))
-        else:
-            nxt_w, sc_w = walk_components(
-                self._walk, st_w,
-                t["mw_comp"][w_word.clamp(min=0)])
-        if self._wb_tid >= 0:
-            prev_wb = t["is_wb_state"][member0_states(self.lm, st_w)]
-            w_ok = w_ok & ~((w_word == self._wb_tid) & prev_wb)
-            if self._end_tid >= 0:
-                nxt_w = torch.where(w_word == self._end_tid, self._wb_reset,
-                                    nxt_w)
-        if end_id is not None:
-            _, end2 = self._walk(nxt_w, torch.full_like(nxt_w, end_id))
-        else:
-            end2 = torch.zeros_like(sc_w)
+        sc_w, end2, lm_ok = we.final_walk(lm[:, wn], w_word,
+                                          t["we_lmid"].expand(B, -1))
         alt_lms = (lms[:, wn] + t["we_pron"] + cfg.insertion_penalty_eff
                    + sc_w + end2)
         alt_tot = torch.where(
-            w_ok & (sc_w > LOG_ZERO / 2),
+            w_ok & lm_ok,
             fma(fma(tot[:, wn], lms[:, wn], -a_lm), alt_lms, a_lm), NEG_INF)
-        base_total = torch.where(alive & t["fin_base_ok"], base_tot, NEG_INF)
+        base_total = torch.where(alive & we.base_ok, base_tot, NEG_INF)
         allt = torch.cat([base_total, alt_tot], dim=1)
         besti = allt.argmax(dim=1, keepdim=True)
         is_alt = besti >= N
@@ -640,8 +575,6 @@ class DenseBeamSearch:
             scr = dense_cuda.Scratch(B, dvc)
             if obs.stride(2) != 1:
                 obs = obs.contiguous()
-        # invalid frames hold no record: word and pointer -1, scores 0
-        fills = (-1, -1, 0.0, 0.0)
         recs = [[] for _ in range(4 if lattice else 2)]
         # the least a frame moves: the carried state read once, written
         # once
@@ -654,18 +587,14 @@ class DenseBeamSearch:
                 new_state, rows, fin = self._step(
                     state, obs, i, v, n_frames, fin, lattice, spare, scr)
                 spare, state = state, new_state
-                for lst, r, f in zip(recs, rows, fills):
+                for lst, r, f in zip(recs, rows, NO_RECORD):
                     lst.append(torch.where(v[:, None], r, f))
         if snap:
             finals = fin + (torch.full((B,), -1, dtype=torch.int64,
                                        device=dvc),)
         else:
             finals = self._final_commit(state)
-        E = cfg.num_records
-        stacked = [torch.stack(lst, 1) if lst else
-                   torch.full((B, 0, E), f, device=dvc,
-                              dtype=torch.int64 if j < 2 else torch.float32)
-                   for j, (lst, f) in enumerate(zip(recs, fills))]
+        stacked = stack_records(recs, B, cfg.num_records, dvc)
         rec_ints = torch.stack(stacked[:2])
         if not lattice:
             return finals, rec_ints, None

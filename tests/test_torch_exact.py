@@ -297,12 +297,62 @@ def test_morph_lm(tmp_path):
     assert boundaries > 0
 
 
+def test_word_end_commit_rule(tmp_path):
+    """`WordEnds` on the morph task of `test_morph_lm`, over hand-made LM
+    states and words: the double-boundary prune, the sentence-end reset,
+    a skip word, the final sentence-end walk and the record pointers."""
+    from aaltoasr_tpu_torch.decoder.ngram import initial_code, reset_code
+    from aaltoasr_tpu_torch.decoder.wordend import WordEnds, records
+    make_morph_task(tmp_path)
+    t = configure(Toolbox(str(tmp_path / "m.ph"), device="cpu"), tmp_path,
+                  lex_name="our_lex.dict", silence_is_word=True,
+                  optional_short_silence=True, word_boundary="<w>")
+    lm = t.lm
+    we = WordEnds(t.tree, lm, t.config)
+    wb, end, ma = (t.tree.word_index[w] for w in ("<w>", "</s>", "ma"))
+    s0 = initial_code(lm)
+    s_wb = lm.walk(s0, lm.word_index["<w>"])[0]
+    s_ma = lm.walk(s_wb, lm.word_index["ma"])[0]
+    states = torch.tensor([[s_wb, s0, s_ma, s_wb, s_ma]])
+    words = torch.tensor([[wb, wb, wb, end, ma]])
+    skip = torch.tensor([[False, False, False, False, True]])
+    nxt, sc = we.walk_words(states, words,
+                            torch.as_tensor(we.lm_ids(words.numpy())))
+    nxt2, sc2, ok = we.commit(states, words, nxt, sc, skip)
+    # a <w> right after a <w> is pruned, after any other state kept
+    assert ok.tolist() == [[False, True, True, True, True]]
+    assert torch.equal(nxt2[0, :3], nxt[0, :3])
+    assert torch.equal(sc2[0, :4], sc[0, :4])
+    # </s> restarts the LM through <s> <w>
+    assert int(nxt2[0, 3]) == reset_code(lm, "<w>") != int(nxt[0, 3])
+    # a skip word keeps its state and scores 0
+    assert int(nxt2[0, 4]) == s_ma and float(sc2[0, 4]) == 0.0
+    end_id = lm.word_index["</s>"]
+    np.testing.assert_allclose(
+        we.end_score(states)[0].numpy(),
+        [lm.walk(int(s), end_id)[1] for s in states[0]], rtol=1e-6)
+    # records at step 3 of E = 3: a word points to itself, a silence
+    # hands on its previous pointer, a dead end records nothing
+    recs, ptr = records(torch.tensor([[True, True, False]]),
+                        torch.tensor([[ma, -1, ma]]),
+                        torch.tensor([[7, 5, 11]]), 3,
+                        (torch.tensor([[1.5, 2.5, 3.5]]),))
+    assert [r.tolist() for r in recs] == [[[ma, -1, -1]], [[7, -1, -1]],
+                                          [[1.5, 0.0, 0.0]]]
+    assert ptr.tolist() == [[9, 5, 11]]
+
+
+@pytest.mark.parametrize("engine", ["exact", "dense"])
 @pytest.mark.parametrize("split,in_lm,seq", [
     (True, False, ["ab_ca"]), (False, False, ["ab", "ca"]),
     (False, True, ["ab_ca"])])
-def test_multiwords(tmp_path, split, in_lm, seq):
-    """Multiwords scored as their components (split) or as LM units,
-    through both Toolboxes on the same files."""
+def test_multiwords(tmp_path, split, in_lm, seq, engine):
+    """Multiwords scored as their components (split) or as LM units:
+    through both Toolboxes on the same files, or through both
+    `DenseBeamSearch`es on the tree and LM those Toolboxes read."""
+    from aaltoasr_tpu.decoder.search_dense import DenseBeamSearch as JDense
+    from aaltoasr_tpu.formats.lna import read_lna
+    from aaltoasr_tpu_torch.decoder.search_dense import DenseBeamSearch
     model, lex = make_mw_task(tmp_path, with_mw_in_lm=in_lm)
     lna = synth_lna(tmp_path, model, lex, seq, seed=3, noise=0.2,
                     name="mw.lna")
@@ -313,9 +363,19 @@ def test_multiwords(tmp_path, split, in_lm, seq):
     ref = configure(JToolbox(str(tmp_path / "m.ph")), tmp_path, **knobs)
     got = configure(Toolbox(str(tmp_path / "m.ph"), device="cpu"), tmp_path,
                     **knobs)
-    r = ref.lna_decode(lna)
+    if engine == "exact":
+        r = ref.lna_decode(lna)
+        g = got.lna_decode(lna)
+    else:
+        lp = read_lna(lna)[0]
+        r = JDense(ref.tree, ref.lm, ref.model, ref.config).decode(lp)
+        port = DenseBeamSearch(got.tree, got.lm, got.model, got.config,
+                               device="cpu")
+        # the split task walks the LM component by component
+        assert (port.wordend.mw_comp.shape[1] > 1) == split
+        g = port.decode(lp)
     assert ("ab_ca" in r.words) == (seq == ["ab_ca"])
-    assert_same(r, got.lna_decode(lna))
+    assert_same(r, g)
 
 
 def _lax_recombine(node, lm, total, alive, W):
